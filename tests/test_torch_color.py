@@ -1,0 +1,69 @@
+"""Colour conversion of the PyTorch port (tpu_vpcc_torch.ops.color)
+against tpu_vpcc's exact integer form and the reference f64 chain."""
+import numpy as np
+import pytest
+import torch
+
+from tpu_vpcc.ops.color import (
+    _G_CHAIN_DEVIATIONS,
+    convert_yuv10_to_rgb8_lut,
+    g8_from_packed,
+)
+from tpu_vpcc.reconstruction.pointset import convert_yuv10_to_rgb8
+from tpu_vpcc_torch.ops.color import rgb8_from_rgb16, rgb8_from_yuv16
+
+
+def _port(yuv: np.ndarray) -> np.ndarray:
+    out = rgb8_from_yuv16(torch.from_numpy(yuv.astype(np.int32)))
+    assert out.dtype == torch.uint8
+    return out.numpy()
+
+
+def test_chain_deviation_inputs():
+    """The 45 (y, u, v) triples where the f64 chain's own rounding lands
+    on a floor boundary of the g channel."""
+    yuv = np.array(sorted(_G_CHAIN_DEVIATIONS), dtype=np.uint16)
+    assert yuv.shape == (45, 3)
+    got = _port(yuv)
+    np.testing.assert_array_equal(got, convert_yuv10_to_rgb8_lut(yuv))
+    np.testing.assert_array_equal(got, convert_yuv10_to_rgb8(yuv))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_random_10bit_domain(seed):
+    rng = np.random.default_rng(seed)
+    yuv = rng.integers(0, 1024, (200_000, 3), dtype=np.uint16)
+    edges = np.array(
+        [[y, u, v] for y in (0, 1, 1023) for u in (0, 512, 1023)
+         for v in (0, 511, 1023)], dtype=np.uint16,
+    )
+    yuv = np.concatenate([yuv, edges])
+    got = _port(yuv)
+    np.testing.assert_array_equal(got, convert_yuv10_to_rgb8_lut(yuv))
+    np.testing.assert_array_equal(got[:5000], convert_yuv10_to_rgb8(yuv[:5000]))
+
+
+def test_batched_shape_and_rgb16():
+    rng = np.random.default_rng(2)
+    yuv = rng.integers(0, 1024, (2, 300, 3), dtype=np.uint16)
+    got = _port(yuv)
+    assert got.shape == (2, 300, 3)
+    np.testing.assert_array_equal(
+        got.reshape(-1, 3), convert_yuv10_to_rgb8_lut(yuv.reshape(-1, 3))
+    )
+    rgb16 = rng.integers(0, 1 << 16, (50, 3)).astype(np.int32)
+    out = rgb8_from_rgb16(torch.from_numpy(rgb16))
+    assert out.dtype == torch.uint8
+    np.testing.assert_array_equal(out.numpy(), (rgb16 & 0xFF).astype(np.uint8))
+
+
+def test_g8_from_packed_on_int32_tensors():
+    """The shared helper runs unchanged on torch int32 tensors; torch
+    floors like numpy on the negative numerators it meets."""
+    rng = np.random.default_rng(3)
+    y = rng.integers(0, 1024, 10_000).astype(np.int32)
+    packed = rng.integers(0, 1 << 24, 10_000).astype(np.int32)
+    want = g8_from_packed(y, packed)
+    got = g8_from_packed(torch.from_numpy(y), torch.from_numpy(packed))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (torch.tensor([-7]) // 341).item() == -1

@@ -1,0 +1,150 @@
+"""Flagship configuration: the 1280^2 two-map decode (BASELINE config 1).
+
+Counterpart of ``tpu_vpcc.models.flagship``: the configuration plus
+synthetic inputs shaped like a real 8iVFB frame (random content made
+from a seed; about 0.95M points per frame at the defaults). "Model" is
+the decoder's reconstruction graph; there are no trainable parameters.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import List, Tuple
+
+import numpy as np
+
+from tpu_vpcc.atlas import groups as G
+from tpu_vpcc.runtime.pipeline import GofData
+from tpu_vpcc.utils.synthetic import SyntheticFrame, make_synthetic_frame
+
+from ..ops.reconstruct import FrameConfig, make_config
+from ..ops.tiled import tile_plane
+
+
+@dataclass
+class FlagshipConfig:
+    """8iVFB-class single-stream configuration (BASELINE.json config 1)."""
+
+    width: int = 1280
+    height: int = 1280
+    occupancy_resolution: int = 16
+    occupancy_precision: int = 4
+    map_count: int = 2
+    batch: int = 4  # frames per example batch
+
+    def frame_config(self) -> FrameConfig:
+        return make_config(
+            width=self.width,
+            height=self.height,
+            occupancy_resolution=self.occupancy_resolution,
+            occupancy_precision=self.occupancy_precision,
+            map_count=self.map_count,
+        )
+
+
+def example_frames(cfg: FlagshipConfig, seed: int = 0, n_patches: int = 48,
+                   occupancy_fill: float = 0.7) -> List[SyntheticFrame]:
+    """``cfg.batch`` synthetic frames (frame k from seed ``seed + k``)."""
+    return [
+        make_synthetic_frame(
+            np.random.default_rng(seed + k),
+            width=cfg.width,
+            height=cfg.height,
+            occupancy_resolution=cfg.occupancy_resolution,
+            occupancy_precision=cfg.occupancy_precision,
+            map_count=cfg.map_count,
+            n_patches=n_patches,
+            occupancy_fill=occupancy_fill,
+            frame_index=k,
+        )
+        for k in range(cfg.batch)
+    ]
+
+
+def example_batch_inputs(cfg: FlagshipConfig, seed: int = 0, frames=None,
+                         **kw) -> Tuple:
+    """Batched raster inputs ``(fields, occ, geo0, geo1, ay, au, av)``,
+    each with a leading frame axis (attributes with a map axis next)."""
+    frames = example_frames(cfg, seed=seed, **kw) if frames is None else frames
+
+    def one(sf):
+        return (
+            G.build_group_table(sf.meta).fields,
+            sf.occ_plane,
+            sf.geo_planes[0],
+            sf.geo_planes[1] if cfg.map_count > 1 else sf.geo_planes[0],
+            np.stack([p[0] for p in sf.attr_planes]),
+            np.stack([p[1] for p in sf.attr_planes]),
+            np.stack([p[2] for p in sf.attr_planes]),
+        )
+
+    per = [one(sf) for sf in frames]
+    return tuple(np.stack([f[i] for f in per]) for i in range(7))
+
+
+def example_pretiled_batch_inputs(cfg: FlagshipConfig, seed: int = 0, **kw) -> Tuple:
+    """Batched inputs in the block-tiled layout the staging packs."""
+    raw = example_batch_inputs(cfg, seed=seed, **kw)
+    res = cfg.occupancy_resolution
+    return (
+        raw[0],
+        tile_plane(raw[1], res // cfg.occupancy_precision),
+        tile_plane(raw[2], res),
+        tile_plane(raw[3], res),
+        tile_plane(raw[4], res),
+        tile_plane(raw[5], res // 2),
+        tile_plane(raw[6], res // 2),
+    )
+
+
+def bucket_flagship_inputs(raw, fcfg: FrameConfig):
+    """Apply the pipeline's group-axis bucketing and pack30 gating to
+    flagship example inputs. Returns ``(raw_bucketed, fcfg', g_bucket,
+    n_live)``."""
+    n_live = int(raw[0][:, :, G.G_VALID].sum(axis=1).max())
+    g_bucket = G.bucket_group_count(n_live, raw[0].shape[1])
+    raw = (np.ascontiguousarray(raw[0][:, :g_bucket]),) + tuple(raw[1:])
+    pack30 = all(
+        G.coords_fit_10bit(
+            raw[0][k], g_bucket, fcfg.occupancy_resolution, fcfg.geo_shift,
+            fcfg.absolute_d1,
+        )
+        for k in range(raw[0].shape[0])
+    )
+    return raw, replace(fcfg, pack30=pack30), g_bucket, n_live
+
+
+def example_gof(cfg: FlagshipConfig, frames: List[SyntheticFrame],
+                tiled: bool = True) -> GofData:
+    """A decoded GOF as ``prepare_gof`` hands it to the reconstruction:
+    geometry and attribute planes block-tiled (the layout the native
+    video bridge emits; raster for the oracle path when ``tiled`` is
+    false), occupancy raster, 10-bit 4:2:0 YUV attributes.
+    ``frames[k].meta.frame_index`` must be ``k``."""
+    res = cfg.occupancy_resolution
+    mc = cfg.map_count
+
+    def lay(plane, t):
+        return tile_plane(plane, t) if tiled else plane
+
+    geo, attr = [], []
+    for sf in frames:
+        for m in range(mc):
+            geo.append(lay(sf.geo_planes[m], res))
+            y, u, v = sf.attr_planes[m]
+            attr.append([lay(y, res), lay(u, res // 2), lay(v, res // 2)])
+    return GofData(
+        metas=[sf.meta for sf in frames],
+        occ_planes=np.stack([sf.occ_plane for sf in frames]),
+        geo_planes=geo,
+        attr_planes=attr,
+        map_count=mc,
+        occupancy_precision=cfg.occupancy_precision,
+        occupancy_resolution=res,
+        absolute_d1=True,
+        geo_shift=2,
+        attribute_count=1,
+        frame_count=len(frames),
+        tiled=tiled,
+        tile_size=res if tiled else 0,
+    )

@@ -1,0 +1,143 @@
+"""Sort-free compaction of the narrow words stage (kernel K1).
+
+Counterpart of ``tpu_vpcc.ops.shift_compact.shift_compact_ops``. The
+words arrive in PATCH memory order, ``[D0 half | D1 half]`` along the
+slot axis, each half in the frame's patch-raster pixel order. Every
+valid slot moves to its emission rank: pixel ``p``'s D0 slot to
+``dest0[p]`` and its D1 slot to ``dest0[p] + v0[p]``, where ``dest0`` is
+the exclusive prefix sum of ``v0 + v1`` over the frame's pixels.
+
+Carriers: ``w0`` and ``wc`` are ``int32`` tensors holding the u32 bit
+patterns, ``zs`` an ``int16`` tensor holding the u16 bit patterns, and
+``valid`` a ``bool`` tensor. The compaction only moves bits.
+
+On a CPU tensor :func:`shift_compact_ops` runs the plain PyTorch
+version; on a CUDA tensor it launches the hand-written kernel
+(``csrc/shift_compact.cu``) or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from . import _build
+
+#: K1 launches made by :func:`shift_compact_ops` in this process
+launches = 0
+_launch_lock = threading.Lock()
+_lib = None
+
+
+def reset_launches() -> None:
+    global launches
+    with _launch_lock:
+        launches = 0
+
+
+def _count_launch() -> None:
+    global launches
+    with _launch_lock:
+        launches += 1
+
+
+def shift_compact_ops_reference(w0, zs, wc, valid):
+    """The plain PyTorch version, on the tensors' device: a prefix sum of
+    the per-pixel validity and two scatters per operand."""
+    F, S = valid.shape
+    half = S // 2
+    v0 = valid[:, :half]
+    v1 = valid[:, half:]
+    s01 = v0.to(torch.int32) + v1.to(torch.int32)
+    incl = torch.cumsum(s01, dim=1, dtype=torch.int32)
+    dest0 = incl - s01
+    counts = (
+        incl[:, -1].contiguous() if half
+        else torch.zeros(F, dtype=torch.int32, device=valid.device)
+    )
+    base = torch.arange(F, device=valid.device)[:, None] * S
+    d0 = (base + dest0)[v0]
+    d1 = (base + dest0 + v0.to(torch.int32))[v1]
+    outs = []
+    for op in [w0] + ([] if zs is None else [zs]) + [wc]:
+        out = torch.empty_like(op)
+        flat = out.view(-1)
+        flat[d0] = op[:, :half][v0]
+        flat[d1] = op[:, half:][v1]
+        outs.append(out)
+    return outs, counts
+
+
+def _check(w0, zs, wc, valid):
+    if valid.dim() != 2 or valid.shape[1] % 2:
+        raise ValueError(f"valid must be (F, even S), got {tuple(valid.shape)}")
+    want = [(w0, torch.int32, "w0"), (wc, torch.int32, "wc"),
+            (valid, torch.bool, "valid")]
+    if zs is not None:
+        want.append((zs, torch.int16, "zs"))
+    for t, dtype, name in want:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, want {dtype}")
+        if t.shape != valid.shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != valid's")
+        if t.device != valid.device:
+            raise ValueError(f"{name} lies on {t.device}, valid on {valid.device}")
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = _build.load("shift_compact")
+        lib.shift_compact_tile_pixels.restype = ctypes.c_int
+        lib.shift_compact_tile_pixels.argtypes = []
+        lib.shift_compact_narrow.restype = ctypes.c_int
+        lib.shift_compact_narrow.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
+        )
+        _lib = lib
+    return _lib
+
+
+def _shift_compact_cuda(w0, zs, wc, valid):
+    for t in (w0, zs, wc, valid):
+        if t is not None and not t.is_contiguous():
+            raise ValueError("K1 takes contiguous (F, S) tensors")
+    lib = _load()
+    F, S = valid.shape
+    tile = lib.shift_compact_tile_pixels()
+    n_tiles = max(1, -(-(S // 2) // tile))
+    dev = valid.device
+    outs = [torch.empty_like(w0)] + (
+        [] if zs is None else [torch.empty_like(zs)]
+    ) + [torch.empty_like(wc)]
+    counts = torch.empty(F, dtype=torch.int32, device=dev)
+    scratch = torch.empty(2 * F * n_tiles, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.shift_compact_narrow(
+            valid.data_ptr(), w0.data_ptr(),
+            None if zs is None else zs.data_ptr(), wc.data_ptr(),
+            outs[0].data_ptr(), None if zs is None else outs[1].data_ptr(),
+            outs[-1].data_ptr(), counts.data_ptr(), scratch.data_ptr(),
+            F, S, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"shift_compact kernel launch failed: CUDA error {rc}")
+    _count_launch()
+    return outs, counts
+
+
+def shift_compact_ops(w0, zs, wc, valid):
+    """Compact the narrow words to their emission prefix.
+
+    Returns ``([w0c, (zsc,) wcc], counts)``: each output ``(F, S)`` with
+    the frame's compacted prefix in emission order and an unspecified
+    tail, and ``counts`` ``(F,)`` int32."""
+    _check(w0, zs, wc, valid)
+    if valid.device.type == "cpu":
+        return shift_compact_ops_reference(w0, zs, wc, valid)
+    if valid.device.type != "cuda":
+        raise NotImplementedError(f"no K1 kernel for device {valid.device}")
+    return _shift_compact_cuda(w0, zs, wc, valid)
