@@ -7,13 +7,18 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 and the CUDA toolkit (nvcc). Phases, each of which exits non-zero on
 failure:
 
-  1. device and build: the card's name and power limit, the K1 build
-     with nvcc's ``-Xptxas -v`` lines, and whether the host video bridge
-     (libavcodec) loads;
+  1. device and build: the card's name and power limit, the builds of
+     both kernel libraries (K1 and K1F in ``shift_compact.cu``, K2W in
+     ``wide_words.cu``; one nvcc each, started together) with nvcc's
+     ``-Xptxas -v`` lines, and whether the host video bridge (libavcodec)
+     loads;
   2. K1 against its plain PyTorch version on the card: densities 0, 0.3,
      0.7, 1 and all-D1-invalid, F = 1 and 2, pack30 and split operands,
      the flagship slot extent and a small odd tile count. Counts equal,
      prefixes byte-equal;
+  2b. K1F against its plain version: densities 0, 0.3, 0.7 and 1, F = 1
+     and 2, the flagship wide extent and a small odd tile count. Counts
+     equal, prefixes byte-equal;
   3. the flagship main path on the card: two GOFs of two synthetic
      1280^2 frames each through ``Decoder.start_gofs`` with both GOFs in
      flight (group tables, cat staging, gather + words + K1 on the card,
@@ -21,7 +26,22 @@ failure:
      byte-equal to the numpy oracle, with the K1 launch counter read
      around that run; then CUDA-event timings and the Decoder's
      throughput with one and two GOFs in flight;
-  4. a committed fixture stream through ``Decoder`` on the card, whose
+  4. K2W against its plain version at the flagship dispatch shape, on
+     the first flagship GOF's staged fields and cat: the plain wide
+     layout, 45-degree views (random G_PLANE in 0..3), a trailing-layer
+     pass (drop_map0), relative D1 and one map. Words and validity
+     byte-equal;
+  5. the wide flagship through ``Decoder.start_gofs``, both GOFs in
+     flight: the first GOF's two 1280^2 frames with geometry and colour
+     smoothing, and two frames (seeds 4-5) with a third of their patches
+     on 45-degree views. Every frame byte-equal to the numpy oracle
+     (``_reconstruct_gof_oracle``), the K2W and K1F launch counters read
+     around the run, and the smoothed frames differ from phase 3's
+     unsmoothed decode of the same frames in a position and a colour;
+     then CUDA-event timings of K2W, K1F, the smoothing and the plain
+     versions in turns, the wide dispatch, the fetch and the host
+     staging, and the Decoder's frames/s with one and two GOFs in flight;
+  6. a committed fixture stream through ``Decoder`` on the card, whose
      PLY bytes must equal the port's oracle path. Not run, and said so,
      only when phase 1 found that the host video bridge cannot load.
 
@@ -37,12 +57,17 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 STREAM = ROOT / "tests" / "data" / "verify_64x64_2f.bin"
 K1_SOURCE = "tpu_vpcc_torch/csrc/shift_compact.cu"
 K1_REPLACES = "tpu_vpcc/ops/shift_compact.py:127"
+K1F_REPLACES = "tpu_vpcc/ops/shift_compact.py:528"
+K2W_SOURCE = "tpu_vpcc_torch/csrc/wide_words.cu"
+K2W_REPLACES = "tpu_vpcc/ops/pallas_kernels.py:38"
+KERNEL_LIBS = ("shift_compact", "wide_words")
 
 
 class SmokeFailure(Exception):
@@ -96,6 +121,7 @@ def phase_build():
     import torch
 
     from tpu_vpcc_torch.ops import _build
+    from tpu_vpcc_torch.ops import payload
     from tpu_vpcc_torch.ops import shift_compact as sc
 
     print(f"device: {torch.cuda.get_device_name(0)}")
@@ -103,11 +129,17 @@ def phase_build():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(KERNEL_LIBS)) as pool:
+        list(pool.map(_build.build, KERNEL_LIBS))
     sc._load()
-    print(f"K1 build: {time.perf_counter() - t0:.2f} s")
-    for line in _build.build_logs.get("shift_compact", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"  {line.strip()}")
+    payload._load()
+    print(f"kernel builds ({', '.join(KERNEL_LIBS)}, in parallel): "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name in KERNEL_LIBS:
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  {name}: {line.strip()}")
     from tpu_vpcc.video import codec
 
     try:
@@ -170,6 +202,49 @@ def phase_k1(S_flag: int):
     print(f"phase 2: {len(cases)} K1 cases byte-equal to the plain version")
 
 
+def _k1f_case(F, S, density, gen):
+    import torch
+
+    from tpu_vpcc_torch.ops import shift_compact as sc
+
+    dev = torch.device("cuda")
+    lo, hi = -(2 ** 31), 2 ** 31 - 1
+    ops = [
+        torch.randint(lo, hi, (F, S), dtype=torch.int32, device=dev,
+                      generator=gen)
+        for _ in range(3)
+    ]
+    valid = torch.rand((F, S), device=dev, generator=gen) < density
+    got, n_got = sc.shift_compact_full(ops, valid)
+    ref, n_ref = sc.shift_compact_full_reference(ops, valid)
+    torch.cuda.synchronize()
+    check(torch.equal(n_got, n_ref),
+          f"K1F counts {n_got.tolist()} != plain {n_ref.tolist()}")
+    counts = n_ref.tolist()
+    err = prefix_err(got, ref, counts)
+    check(err == 0, f"K1F prefix differs from plain (max abs err {err})")
+    return counts, err
+
+
+def phase_k1f(S_flag: int) -> int:
+    """K1F against its plain version; returns the max abs error."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    s_odd = 2 * 2048 + 768  # 3 tiles of the kernel, the last partial
+    n, err = 0, 0
+    for S in (S_flag, s_odd):
+        for F in (1, 2):
+            for density in (0.0, 0.3, 0.7, 1.0):
+                counts, e = _k1f_case(F, S, density, gen)
+                err = max(err, e)
+                n += 1
+                print(f"K1F vs plain: F={F} S={S} density={density}: "
+                      f"counts {counts} equal")
+    print(f"phase 2b: {n} K1F cases byte-equal to the plain version")
+    return err
+
+
 def oracle_frame(sf, frames):
     from tpu_vpcc.reconstruction.oracle import (
         GeneratePointCloudParams,
@@ -189,9 +264,9 @@ def oracle_frame(sf, frames):
 
 
 def flagship_inputs():
-    """Two decoded GOFs of two synthetic 1280^2 flagship frames each
-    (frame seeds 0-1 and 2-3), and the slot extent S of the first
-    GOF's dispatch."""
+    """The flagship config, two decoded GOFs of two synthetic 1280^2
+    flagship frames each (frame seeds 0-1 and 2-3), and the slot extent
+    S of the first GOF's dispatch."""
     from tpu_vpcc_torch.models.flagship import (
         FlagshipConfig,
         example_frames,
@@ -207,7 +282,7 @@ def flagship_inputs():
     print(f"flagship: {fcfg.width}x{fcfg.height}, {len(gofs)} GOFs of "
           f"{fcfg.batch} frames synthesised in {time.perf_counter() - t0:.2f} "
           f"s, {g_bucket} groups per frame")
-    return frame_sets, gofs, g_bucket * cfg.slots_per_block
+    return fcfg, frame_sets, gofs, g_bucket * cfg.slots_per_block
 
 
 def decode_gofs(gofs, depth: int):
@@ -363,7 +438,240 @@ def phase_flagship(frame_sets, gofs):
         "max_abs_err": k1_err,
         "ms": k1_ms,
         "plain_ms": plain_ms,
+    }, out
+
+
+def words_err(a, b) -> int:
+    """Max |a - b| over two tuples of equal-shape tensors."""
+    return max(int((x.long() - y.long()).abs().max()) if x.numel() else 0
+               for x, y in zip(a, b))
+
+
+def phase_k2w(gof):
+    """K2W against its plain version at the flagship dispatch shape, on
+    the first flagship GOF's staged fields and cat; returns the max abs
+    error."""
+    from dataclasses import replace
+
+    import torch
+
+    from tpu_vpcc.atlas import groups as G
+    from tpu_vpcc_torch.ops import payload
+    from tpu_vpcc_torch.ops.tiled import to_device
+    from tpu_vpcc_torch.runtime import pipeline as P
+
+    cfg, tables, g_bucket = P._gof_tables_and_bucket(gof)
+    di = P._gof_device_inputs(gof, gof.metas, (cfg, tables), g_bucket)
+    fields, cat = to_device(*di.arrays, torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    fields45 = fields.clone()
+    fields45[:, :, G.G_PLANE] = torch.randint(
+        0, 4, fields.shape[:2], dtype=torch.int32, device="cuda",
+        generator=gen,
+    )
+    base = di.cfg
+    cases = {
+        "wide layout": (fields, base),
+        "45-degree views, G_PLANE random in 0..3": (
+            fields45, replace(base, additional_planes=True)),
+        "45-degree views + drop_map0": (
+            fields45, replace(base, additional_planes=True, drop_map0=True)),
+        "drop_map0": (fields, replace(base, drop_map0=True)),
+        "relative D1": (fields, replace(base, absolute_d1=False)),
+        "one map": (fields, replace(base, map_count=1)),
     }
+    err = 0
+    for name, (f, c) in cases.items():
+        got = payload.wide_words(f, cat, c)
+        ref = payload.wide_words_reference(f, cat, c)
+        torch.cuda.synchronize()
+        e = words_err(got, ref)
+        check(e == 0 and all(torch.equal(a, b) for a, b in zip(got, ref)),
+              f"K2W differs from plain ({name}, max abs err {e})")
+        err = max(err, e)
+        print(f"K2W vs plain: {name}: F={fields.shape[0]} groups="
+              f"{fields.shape[1]} S={got[0].shape[1]}, "
+              f"{int(got[3].sum())} valid slots, words and validity equal")
+    print(f"phase 4: {len(cases)} K2W cases byte-equal to the plain version")
+    return err
+
+
+def phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err):
+    """The wide flagship main path through ``Decoder.start_gofs``, the
+    oracle, smoothing's effect and the timings; returns the kernels' JSON
+    entries of K1F and K2W."""
+    import numpy as np
+    import torch
+
+    from tpu_vpcc.runtime.pipeline import _reconstruct_gof_oracle
+    from tpu_vpcc_torch.models.flagship import (
+        ATTR_SMOOTHING,
+        GEO_SMOOTHING,
+        example_frames,
+        example_gof,
+    )
+    from tpu_vpcc_torch.ops import payload
+    from tpu_vpcc_torch.ops import shift_compact as sc
+    from tpu_vpcc_torch.ops.tiled import (
+        reconstruct_batch_pretiled,
+        smooth_words,
+        to_device,
+    )
+    from tpu_vpcc_torch.runtime import pipeline as P
+
+    dev = torch.device("cuda")
+    smooth = dict(geo_smoothing=GEO_SMOOTHING, attr_smoothing=ATTR_SMOOTHING)
+    t0 = time.perf_counter()
+    frames45 = example_frames(fcfg, seed=4, views45=1 / 3)
+    n45 = sum(p.axis_of_additional_plane != 0
+              for sf in frames45 for p in sf.meta.patches)
+    n_all = sum(len(sf.meta.patches) for sf in frames45)
+    wide_sets = [frame_sets[0], frames45]
+    wide_gofs = [example_gof(fcfg, frame_sets[0], **smooth),
+                 example_gof(fcfg, frames45)]
+    print(f"wide flagship: GOF 0 = frames of seeds 0-1 with geometry "
+          f"smoothing {GEO_SMOOTHING} and colour smoothing "
+          f"{ATTR_SMOOTHING}; GOF 1 = frames of seeds 4-5 with {n45} of "
+          f"{n_all} patches on 45-degree views (synthesised in "
+          f"{time.perf_counter() - t0:.2f} s)")
+
+    # the wide main path, counted
+    torch.cuda.synchronize()
+    sc.reset_launches()
+    payload.reset_launches()
+    t0 = time.perf_counter()
+    out = decode_gofs(wide_gofs, depth=2)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    k2w_launches, k1f_launches = payload.launches, sc.full_launches
+    check(k2w_launches > 0 and k1f_launches > 0,
+          f"the wide main path launched K2W {k2w_launches} and K1F "
+          f"{k1f_launches} times")
+    print(f"wide main path: Decoder.start_gofs, pipeline_gofs=2, "
+          f"{len(wide_gofs)} GOFs, {len(out)} frames in {first_s:.3f} s "
+          f"(first run), K2W launches {k2w_launches}, K1F launches "
+          f"{k1f_launches}, K1 launches {sc.launches}")
+    n_frames = sum(len(f) for f in wide_sets)
+    check(len(out) == n_frames, f"{len(out)} frames out for {n_frames} in")
+    n_points = []
+    for g, frames in enumerate(wide_sets):
+        t0 = time.perf_counter()
+        oracle_gof = example_gof(fcfg, frames, tiled=False,
+                                 **(smooth if g == 0 else {}))
+        refs = list(_reconstruct_gof_oracle(oracle_gof))
+        ora_s = time.perf_counter() - t0
+        for k, ref in enumerate(refs):
+            ps = out[g * len(frames) + k]
+            same = (
+                ps.positions.shape == ref.positions.shape
+                and np.array_equal(ps.positions, ref.positions)
+                and np.array_equal(ps.colors, ref.colors)
+            )
+            check(same, f"wide GOF {g} frame {k}: {len(ps)} points differ "
+                        f"from the oracle's {len(ref)}")
+            n_points.append(len(ps))
+            print(f"wide GOF {g} frame {k}: {len(ps)} points byte-equal to "
+                  f"the numpy oracle (oracle GOF {ora_s:.1f} s)")
+    moved_pos = moved_col = 0
+    for k in range(len(frame_sets[0])):
+        a, b = out[k], narrow_out[k]
+        check(a.positions.shape == b.positions.shape,
+              "smoothing changed a point count")
+        moved_pos += int((a.positions != b.positions).any(axis=1).sum())
+        moved_col += int((a.colors != b.colors).any(axis=1).sum())
+    check(moved_pos > 0 and moved_col > 0,
+          f"smoothing moved {moved_pos} positions and {moved_col} colours")
+    print(f"smoothing ran: against phase 3's unsmoothed decode of the same "
+          f"two frames, {moved_pos} positions and {moved_col} colours differ")
+
+    # timings at the smoothing GOF's dispatch shape (not counted)
+    gof = wide_gofs[0]
+    cfg, tables, g_bucket = P._gof_tables_and_bucket(gof)
+    t0 = time.perf_counter()
+    di = P._gof_device_inputs(gof, gof.metas, (cfg, tables), g_bucket)
+    stage_s = time.perf_counter() - t0
+    fields, cat = to_device(*di.arrays, dev)
+    w0, w1, w2, valid = payload.wide_words(fields, cat, di.cfg)
+    sw = smooth_words(fields, w0, w1, w2, valid, di.cfg)
+    got, n_got = sc.shift_compact_full(sw, valid)
+    ref, n_ref = sc.shift_compact_full_reference(sw, valid)
+    torch.cuda.synchronize()
+    check(torch.equal(n_got, n_ref), "K1F counts differ at the wide flagship")
+    e = prefix_err(got, ref, n_ref.tolist())
+    check(e == 0, f"K1F differs from plain at the wide flagship ({e})")
+    k1f_err = max(k1f_err, e)
+    S = valid.shape[1]
+    print(f"wide dispatch shape: F={valid.shape[0]} groups={g_bucket} S={S}, "
+          f"{int(valid.sum())} valid slots")
+    runs = {
+        "k2w": lambda: payload._wide_words_cuda(fields, cat, di.cfg),
+        "k2w_plain": lambda: payload.wide_words_reference(fields, cat, di.cfg),
+        "k1f": lambda: sc._shift_compact_full_cuda(sw, valid),
+        "k1f_plain": lambda: sc.shift_compact_full_reference(sw, valid),
+        "smoothing": lambda: smooth_words(fields, w0, w1, w2, valid, di.cfg),
+        "dispatch": lambda: reconstruct_batch_pretiled(fields, cat, di.cfg),
+    }
+    ms = {name: [] for name in runs}
+    for pair in (("k2w_plain", "k2w"), ("k1f_plain", "k1f"),
+                 ("smoothing", "dispatch")):
+        for name in pair + pair[::-1]:  # in turns
+            ms[name].append(event_ms(runs[name], reps=10))
+    med = {name: statistics.median(v) for name, v in ms.items()}
+    ops, counts_t = reconstruct_batch_pretiled(fields, cat, di.cfg)
+    counts = counts_t.cpu().numpy()
+    ms_fetch = event_ms(lambda: P._fetch_prefixes_packed(
+        ops, counts, color_mode="yuv10", layout="wide"), reps=10)
+    smi = nvidia_smi_line()
+    print(f"wide timings (median CUDA events, {smi}): " + "; ".join(
+        f"{name} {med[name]:.4f} ms (runs {ms[name]})" for name in runs)
+        + f"; fetch {ms_fetch:.4f} ms; host staging {stage_s * 1e3:.1f} ms")
+
+    from tpu_vpcc.utils.stats import GofStats
+
+    reps = 3
+    stages = GofStats()
+    for _ in range(reps):
+        list(P._reconstruct_gof_device(gof, dev, stats=stages))
+    print("wide device stage split (host clock, ms per GOF, smoothing GOF): "
+          + ", ".join(f"{k} {v * 1e3 / reps:.2f}"
+                      for k, v in sorted(stages.stage_seconds.items())))
+
+    stream = wide_gofs * 2
+    dec_s = {1: [], 2: []}
+    for depth in (1, 2, 2, 1):
+        t0 = time.perf_counter()
+        n = len(decode_gofs(stream, depth))
+        dec_s[depth].append(time.perf_counter() - t0)
+        check(n == 2 * n_frames, f"Decoder emitted {n} frames")
+    print(f"wide Decoder.start_gofs (host clock, {len(stream)} GOFs, "
+          f"{2 * n_frames} frames, {smi}): " + "; ".join(
+              f"pipeline_gofs={d}: runs {[round(x, 4) for x in v]} s, "
+              f"{2 * n_frames / statistics.median(v):.1f} frames/s"
+              for d, v in dec_s.items()))
+    print(f"peak device memory over the script: "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
+    return [
+        {
+            "name": "shift_compact_full",
+            "route": "cuda",
+            "source": K1_SOURCE,
+            "replaces": K1F_REPLACES,
+            "launches": k1f_launches,
+            "max_abs_err": k1f_err,
+            "ms": med["k1f"],
+            "plain_ms": med["k1f_plain"],
+        },
+        {
+            "name": "wide_words",
+            "route": "cuda",
+            "source": K2W_SOURCE,
+            "replaces": K2W_REPLACES,
+            "launches": k2w_launches,
+            "max_abs_err": k2w_err,
+            "ms": med["k2w"],
+            "plain_ms": med["k2w_plain"],
+        },
+    ]
 
 
 def phase_stream():
@@ -405,9 +713,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     try:
         bridge = phase_build()
-        frame_sets, gofs, S_flag = flagship_inputs()
+        fcfg, frame_sets, gofs, S_flag = flagship_inputs()
         phase_k1(S_flag)
-        k1 = phase_flagship(frame_sets, gofs)
+        k1f_err = phase_k1f(S_flag)
+        k1, narrow_out = phase_flagship(frame_sets, gofs)
+        k2w_err = phase_k2w(gofs[0])
+        wide = phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err)
         if bridge:
             phase_stream()
         else:
@@ -417,7 +728,7 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": [k1]}))
+    print(json.dumps({"kernels": [k1] + wide}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,9 +1,9 @@
 """Fixture streams decoded by the PyTorch port on the CPU.
 
 The PLY bytes of every frame must equal tpu_vpcc's device decode (JAX on
-the CPU) and the numpy oracle's. The port never imports jax: a
-subprocess decodes through ``Decoder`` and ``python -m
-tpu_vpcc_torch.runtime.cli`` and then checks ``sys.modules``.
+the CPU) and the numpy oracle's. The port never imports jax: subprocesses
+decode through ``Decoder`` and ``python -m tpu_vpcc_torch.runtime.cli``
+(a plain and a smoothing stream) and then check ``sys.modules``.
 """
 import os
 import subprocess
@@ -99,15 +99,59 @@ def _stream_multi_tile_aux():
     return build_fixture_stream([sf], tiles=(2, 1), aux_tile_row_heights=[1, 1])
 
 
+def _views45(frames):
+    """Put the patches of each frame on the 45-degree planes 1, 2 and 3,
+    as bench.py's proj45 family does."""
+    for sf in frames:
+        for p, plane in zip(sf.meta.patches, (1, 2, 3)):
+            p.set_view_id(next(
+                v for v, r in Patch._VIEW_TABLE.items()
+                if r[0] == plane and r[4] == p.projection_mode
+            ))
+    return frames
+
+
+def _stream_proj45():
+    return build_fixture_stream(_views45(_mk(99, n_frames=1)))
+
+
+def _stream_proj45_three_maps():
+    """45-degree views in a three-map stream: the trailing-layer pass
+    (drop_map0) takes the wide path too."""
+    return build_fixture_stream(
+        _views45(_mk(67, map_count=3)), multi_map_streams=True
+    )
+
+
+def _stream_smoothing_secondary():
+    """Smoothing SEIs for attribute 0 and for a secondary texture: the
+    secondary twin pass takes the wide path with its own instance."""
+    return build_fixture_stream(
+        _mk(43, map_count=2), secondary_attrs=[(3, 1, None), (0, 3, None)],
+        geo_smoothing_sei=(8, 16),
+        attr_smoothing_sei=[(0, 8, 255, 1), (2, 8, 255, 1)],
+    )
+
+
+def _stream_smoothing():
+    """Geometry and attribute smoothing SEIs, as bench.py's smoothing
+    family writes them (decoded with both toggles on)."""
+    return build_fixture_stream(
+        _mk(47, map_count=2), geo_smoothing_sei=(8, 16),
+        attr_smoothing_sei=(8, 255, 1),
+    )
+
+
 def _stream_vui():
     from tests.test_vui import rich_vui
 
     return build_fixture_stream(_mk(53), vui=rich_vui())
 
 
-# the feature families of tpu_vpcc's on-device parity check (bench.py
-# tpu_family_parity) that the narrow path decodes; 45-degree views and
-# smoothing need the wide path and raise (see below)
+# the twelve feature families of tpu_vpcc's on-device parity check
+# (bench.py tpu_family_parity; its eom and secondary_attrs families are
+# covered by raw_eom_secondary), the verify stream, and two more cases of
+# the wide path, which proj45 and smoothing take
 STREAMS = {
     "verify": lambda: VERIFY_STREAM.read_bytes(),
     "three_maps": _stream_three_maps,
@@ -120,7 +164,16 @@ STREAMS = {
         _mk(31), multi_map_streams=True, chroma422=True),
     "vui": _stream_vui,
     "atlas_hash": lambda: build_fixture_stream(_mk(59), atlas_hash_sei=True),
+    "proj45": _stream_proj45,
+    "smoothing": _stream_smoothing,
+    # the wide path's trailing-layer and secondary-attribute passes
+    "proj45_three_maps": _stream_proj45_three_maps,
+    "smoothing_secondary": _stream_smoothing_secondary,
 }
+
+SMOOTHING = dict(apply_geo_smoothing_type=True, apply_attr_smoothing_type=True)
+#: decoder options of a family (the reference's Params takes the same)
+STREAM_PARAMS = {"smoothing": SMOOTHING, "smoothing_secondary": SMOOTHING}
 
 
 def _decode(decoder_cls, params_cls, data, **kw):
@@ -133,12 +186,13 @@ def _decode(decoder_cls, params_cls, data, **kw):
 @pytest.mark.parametrize("name", sorted(STREAMS))
 def test_stream_matches_reference_and_oracle(name):
     data = STREAMS[name]()
-    got = _decode(Decoder, Params, data, device="cpu")
-    ref = _decode(RefDecoder, RefParams, data)
-    oracle = _decode(RefDecoder, RefParams, data, use_device=False)
-    port_oracle = _decode(Decoder, Params, data, use_device=False)
+    kw = STREAM_PARAMS.get(name, {})
+    got = _decode(Decoder, Params, data, device="cpu", **kw)
+    ref = _decode(RefDecoder, RefParams, data, **kw)
+    oracle = _decode(RefDecoder, RefParams, data, use_device=False, **kw)
+    port_oracle = _decode(Decoder, Params, data, use_device=False, **kw)
     assert len(got) >= 1
-    if name == "raw_eom_secondary":
+    if name in ("raw_eom_secondary", "smoothing_secondary"):
         header = got[0].split(b"end_header")[0]
         assert b"property ushort reflectance" in header
         assert b"property uchar red2" in header
@@ -186,34 +240,52 @@ print("JAX_FREE")
 
 
 @needs_encoder
-def test_smoothing_stream_raises():
-    data = build_fixture_stream(_mk(47), geo_smoothing_sei=(8, 16))
-    dec = Decoder(Params(data, device="cpu", apply_geo_smoothing_type=True))
-    dec.start()
-    with pytest.raises(UnsupportedFeature, match="ROADMAP queue 1 #7"):
-        list(dec)
-    # without the toggle the SEI is ignored, as in tpu_vpcc
-    assert _decode(Decoder, Params, data, device="cpu") == \
-        _decode(RefDecoder, RefParams, data, use_device=False)
-    assert port_cli.main(["-i", "x.bin", "-o", "out",
-                          "--apply-attr-smoothing"]) == 2
-
-
-@needs_encoder
-def test_45_degree_views_raise():
-    (sf,) = _mk(99, n_frames=1)
-    for p, plane in zip(sf.meta.patches, (1, 2, 3)):
-        p.set_view_id(next(
-            v for v, r in Patch._VIEW_TABLE.items()
-            if r[0] == plane and r[4] == p.projection_mode
-        ))
-    data = build_fixture_stream([sf])
-    dec = Decoder(Params(data, device="cpu"))
-    dec.start()
-    with pytest.raises(UnsupportedFeature, match="ROADMAP queue 1 #7"):
-        list(dec)
-    assert _decode(Decoder, Params, data, use_device=False) == \
-        _decode(RefDecoder, RefParams, data, use_device=False)
+def test_smoothing_cli_matches_reference_cli_and_stays_jax_free(tmp_path):
+    """``--apply-geo-smoothing --apply-attr-smoothing``: the port's CLI
+    (on the wide path) writes the same files as tpu_vpcc's CLI, and a
+    smoothing decode through the CLI and ``Decoder`` never imports jax."""
+    stream = tmp_path / "smoothing.bin"
+    stream.write_bytes(_stream_smoothing())
+    flags = ["--apply-geo-smoothing", "--apply-attr-smoothing"]
+    out_port = tmp_path / "port"
+    out_ref = tmp_path / "ref"
+    script = f"""
+import runpy, sys
+from tpu_vpcc_torch import Decoder, Params
+dec = Decoder(Params({str(stream)!r}, device="cpu",
+                     apply_geo_smoothing_type=True,
+                     apply_attr_smoothing_type=True))
+dec.start()
+assert sum(len(f) > 0 for f in dec) == 2
+sys.argv = ["cli", "-i", {str(stream)!r}, "-o", {str(out_port)!r},
+            "--device", "cpu"] + {flags!r}
+try:
+    runpy.run_module("tpu_vpcc_torch.runtime.cli", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+assert not mods, mods
+print("JAX_FREE")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "JAX_FREE" in proc.stdout
+    assert ref_cli.main(["-i", str(stream), "-o", str(out_ref)] + flags) == 0
+    names = sorted(p.name for p in out_ref.iterdir())
+    assert names == sorted(p.name for p in out_port.iterdir())
+    assert len(names) == 2
+    for n in names:
+        assert (out_port / n).read_bytes() == (out_ref / n).read_bytes()
+    # and the port's oracle path agrees with its device path
+    assert port_cli.main(["-i", str(stream), "-o", str(tmp_path / "ora"),
+                          "--oracle"] + flags) == 0
+    for n in names:
+        assert (tmp_path / "ora" / n).read_bytes() == \
+            (out_port / n).read_bytes()
 
 
 @needs_encoder

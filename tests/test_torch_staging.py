@@ -15,7 +15,7 @@ from tpu_vpcc.atlas.patches import Patch
 from tpu_vpcc.ops import tiled as ref_tiled
 from tpu_vpcc.ops.reconstruct import make_config as ref_make_config
 from tpu_vpcc.utils.synthetic import make_synthetic_frame
-from tpu_vpcc.v3c.syntax import PatchOrientation, UnsupportedFeature
+from tpu_vpcc.v3c.syntax import PatchOrientation
 from tpu_vpcc_torch.ops import tiled as T
 from tpu_vpcc_torch.ops.reconstruct import make_config
 
@@ -141,5 +141,7 @@ def test_narrow_gate():
                 replace(cfg, attr_smoothing=object()),
                 replace(cfg, additional_planes=True)):
         assert not T.narrow_emit_ok(bad)
-        with pytest.raises(UnsupportedFeature, match="ROADMAP queue 1 #7"):
-            T.require_narrow(bad)
+        # the pipeline sends these down the wide path; the narrow
+        # dispatch refuses them
+        with pytest.raises(ValueError, match="wide-path config"):
+            T.reconstruct_batch_pretiled_packed(None, None, bad)

@@ -4,6 +4,13 @@ Counterpart of ``tpu_vpcc.models.flagship``: the configuration plus
 synthetic inputs shaped like a real 8iVFB frame (random content made
 from a seed; about 0.95M points per frame at the defaults). "Model" is
 the decoder's reconstruction graph; there are no trainable parameters.
+
+The wide path's features at this shape: ``example_gof`` takes geometry
+and colour smoothing configs (BASELINE config 4's feature set;
+:data:`GEO_SMOOTHING` and :data:`ATTR_SMOOTHING` are the values of
+``bench.py``'s smoothing family), and ``example_frames`` can put a share
+of the patches on 45-degree views, as ``bench.py``'s proj45 family sets
+them.
 """
 
 from __future__ import annotations
@@ -14,6 +21,8 @@ from typing import List, Tuple
 import numpy as np
 
 from tpu_vpcc.atlas import groups as G
+from tpu_vpcc.atlas.patches import Patch
+from tpu_vpcc.ops.smoothing import AttrSmoothingConfig, SmoothingConfig
 from tpu_vpcc.runtime.pipeline import GofData
 from tpu_vpcc.utils.synthetic import SyntheticFrame, make_synthetic_frame
 
@@ -42,10 +51,37 @@ class FlagshipConfig:
         )
 
 
+#: geometry smoothing of bench.py's smoothing family: SEI (8, 16)
+GEO_SMOOTHING = SmoothingConfig(grid_size=8, threshold=16)
+#: colour smoothing of bench.py's smoothing family: SEI (8, 255, 1)
+ATTR_SMOOTHING = AttrSmoothingConfig(8, 255, 1)
+
+
+def set_45_degree_views(sf: SyntheticFrame, share: float, seed: int) -> int:
+    """Put about ``share`` of the frame's patches on 45-degree views, in
+    place: the chosen patches (drawn from ``seed``) take, in turn,
+    additional planes 1, 2 and 3 with their projection mode kept, as
+    ``bench.py``'s proj45 family sets them. Returns how many moved."""
+    patches = sf.meta.patches
+    n = int(round(share * len(patches)))
+    chosen = np.random.default_rng(seed).choice(len(patches), n, replace=False)
+    for j, i in enumerate(sorted(chosen)):
+        p = patches[i]
+        plane = 1 + j % 3
+        p.set_view_id(next(
+            v for v, r in Patch._VIEW_TABLE.items()
+            if r[0] == plane and r[4] == p.projection_mode
+        ))
+    return n
+
+
 def example_frames(cfg: FlagshipConfig, seed: int = 0, n_patches: int = 48,
-                   occupancy_fill: float = 0.7) -> List[SyntheticFrame]:
-    """``cfg.batch`` synthetic frames (frame k from seed ``seed + k``)."""
-    return [
+                   occupancy_fill: float = 0.7,
+                   views45: float = 0.0) -> List[SyntheticFrame]:
+    """``cfg.batch`` synthetic frames (frame k from seed ``seed + k``);
+    ``views45`` is the share of each frame's patches put on 45-degree
+    views (:func:`set_45_degree_views`)."""
+    frames = [
         make_synthetic_frame(
             np.random.default_rng(seed + k),
             width=cfg.width,
@@ -59,6 +95,10 @@ def example_frames(cfg: FlagshipConfig, seed: int = 0, n_patches: int = 48,
         )
         for k in range(cfg.batch)
     ]
+    if views45:
+        for k, sf in enumerate(frames):
+            set_45_degree_views(sf, views45, seed=seed + k)
+    return frames
 
 
 def example_batch_inputs(cfg: FlagshipConfig, seed: int = 0, frames=None,
@@ -115,11 +155,13 @@ def bucket_flagship_inputs(raw, fcfg: FrameConfig):
 
 
 def example_gof(cfg: FlagshipConfig, frames: List[SyntheticFrame],
-                tiled: bool = True) -> GofData:
+                tiled: bool = True, geo_smoothing=None,
+                attr_smoothing=None) -> GofData:
     """A decoded GOF as ``prepare_gof`` hands it to the reconstruction:
     geometry and attribute planes block-tiled (the layout the native
     video bridge emits; raster for the oracle path when ``tiled`` is
-    false), occupancy raster, 10-bit 4:2:0 YUV attributes.
+    false), occupancy raster, 10-bit 4:2:0 YUV attributes, and the
+    smoothing configs as the applied SEIs would set them (None = off).
     ``frames[k].meta.frame_index`` must be ``k``."""
     res = cfg.occupancy_resolution
     mc = cfg.map_count
@@ -147,4 +189,6 @@ def example_gof(cfg: FlagshipConfig, frames: List[SyntheticFrame],
         frame_count=len(frames),
         tiled=tiled,
         tile_size=res if tiled else 0,
+        geo_smoothing=geo_smoothing,
+        attr_smoothing=attr_smoothing,
     )

@@ -1,15 +1,15 @@
 """Static reconstruction geometry of one dispatch.
 
 Counterpart of ``tpu_vpcc.ops.reconstruct.FrameConfig``/``make_config``
-with the fields the narrow path reads. The gating fields (``smoothing``,
-``attr_smoothing``, ``additional_planes``) are kept so that the port can
-refuse what it does not run yet; the TPU compaction policy fields are
-not ported.
+with the fields the narrow and wide paths read (the TPU compaction
+policy fields are not ported), and ``apply_inverse_rot45``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -26,7 +26,7 @@ class FrameConfig:
     geo_shift: int = 2  # depth = sample >> geo_shift
     # attribute chroma subsampling: 1 for 4:2:0, 0 for 4:4:4/RGB
     chroma_shift: int = 1
-    # geometry / attribute smoothing configs (None = off); not ported
+    # geometry / attribute smoothing configs (None = off): the wide path
     smoothing: object = None
     attr_smoothing: object = None
     # the host transposed SWAP-family blocks in the packed cat, so the
@@ -80,3 +80,25 @@ def make_config(
         additional_planes=additional_planes,
         geometry_bitdepth_3d=geometry_bitdepth_3d,
     )
+
+
+def apply_inverse_rot45(px, py, pz, plane, bitdepth: int):
+    """Inverse 45-degree rotation, counterpart of
+    ``tpu_vpcc.ops.reconstruct.apply_inverse_rot45``.
+
+    ``px/py/pz``: int32 rotated-frame components; ``plane``: int32
+    ``axis_of_additional_plane`` broadcastable against them (0 =
+    identity). ``>> 1`` on int32 is an arithmetic shift (floor), as in
+    the scalar oracle. Returns u16-masked int32 components."""
+    shift = (1 << (bitdepth - 1)) - 1
+
+    def pair(rs, rd):
+        return (rs - rd + shift) >> 1, (rs + rd - shift) >> 1
+
+    x1, z1 = pair(px, pz)  # plane 1 mixes (x, z)
+    z2, y2 = pair(pz, py)  # plane 2 mixes (z, y)
+    y3, x3 = pair(py, px)  # plane 3 mixes (y, x)
+    nx = torch.where(plane == 1, x1, torch.where(plane == 3, x3, px))
+    ny = torch.where(plane == 2, y2, torch.where(plane == 3, y3, py))
+    nz = torch.where(plane == 1, z1, torch.where(plane == 2, z2, pz))
+    return nx & 0xFFFF, ny & 0xFFFF, nz & 0xFFFF

@@ -1,19 +1,27 @@
-"""Sort-free compaction of the narrow words stage (kernel K1).
+"""Sort-free compaction: kernels K1 (narrow words) and K1F (wide words).
 
-Counterpart of ``tpu_vpcc.ops.shift_compact.shift_compact_ops``. The
-words arrive in PATCH memory order, ``[D0 half | D1 half]`` along the
+:func:`shift_compact_ops` (K1) is the counterpart of
+``tpu_vpcc.ops.shift_compact.shift_compact_ops``. The narrow words
+arrive in PATCH memory order, ``[D0 half | D1 half]`` along the
 slot axis, each half in the frame's patch-raster pixel order. Every
 valid slot moves to its emission rank: pixel ``p``'s D0 slot to
 ``dest0[p]`` and its D1 slot to ``dest0[p] + v0[p]``, where ``dest0`` is
 the exclusive prefix sum of ``v0 + v1`` over the frame's pixels.
 
-Carriers: ``w0`` and ``wc`` are ``int32`` tensors holding the u32 bit
-patterns, ``zs`` an ``int16`` tensor holding the u16 bit patterns, and
-``valid`` a ``bool`` tensor. The compaction only moves bits.
+:func:`shift_compact_full` (K1F) is the counterpart of
+``tpu_vpcc.ops.shift_compact.shift_compact_full_order``: the wide
+path's three words arrive in emission order already, so each valid slot
+moves to ``dest``, the exclusive prefix sum of the validity over the
+frame's flat slot order.
 
-On a CPU tensor :func:`shift_compact_ops` runs the plain PyTorch
-version; on a CUDA tensor it launches the hand-written kernel
-(``csrc/shift_compact.cu``) or raises.
+Carriers: ``w0``, ``wc`` and the wide words are ``int32`` tensors
+holding the u32 bit patterns, ``zs`` an ``int16`` tensor holding the
+u16 bit patterns, and ``valid`` a ``bool`` tensor. The compaction only
+moves bits.
+
+On a CPU tensor both wrappers run their plain PyTorch versions; on a
+CUDA tensor they launch the hand-written kernels
+(``csrc/shift_compact.cu``) or raise.
 """
 
 from __future__ import annotations
@@ -27,20 +35,30 @@ from . import _build
 
 #: K1 launches made by :func:`shift_compact_ops` in this process
 launches = 0
+#: K1F launches made by :func:`shift_compact_full` in this process
+full_launches = 0
 _launch_lock = threading.Lock()
 _lib = None
 
 
 def reset_launches() -> None:
-    global launches
+    """Set both launch counters to 0."""
+    global launches, full_launches
     with _launch_lock:
         launches = 0
+        full_launches = 0
 
 
 def _count_launch() -> None:
     global launches
     with _launch_lock:
         launches += 1
+
+
+def _count_full_launch() -> None:
+    global full_launches
+    with _launch_lock:
+        full_launches += 1
 
 
 def shift_compact_ops_reference(w0, zs, wc, valid):
@@ -96,6 +114,10 @@ def _load():
         lib.shift_compact_narrow.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
         )
+        lib.shift_compact_full.restype = ctypes.c_int
+        lib.shift_compact_full.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
+        )
         _lib = lib
     return _lib
 
@@ -141,3 +163,88 @@ def shift_compact_ops(w0, zs, wc, valid):
     if valid.device.type != "cuda":
         raise NotImplementedError(f"no K1 kernel for device {valid.device}")
     return _shift_compact_cuda(w0, zs, wc, valid)
+
+
+# ---------------------------------------------------------------------------
+# K1F: the wide path's full-order compaction
+# ---------------------------------------------------------------------------
+
+
+def shift_compact_full_reference(ops, valid):
+    """The plain PyTorch version of K1F, on the tensors' device: a
+    prefix sum of the validity and one scatter per operand."""
+    F, S = valid.shape
+    v = valid.to(torch.int32)
+    incl = torch.cumsum(v, dim=1, dtype=torch.int32)
+    counts = (
+        incl[:, -1].contiguous() if S
+        else torch.zeros(F, dtype=torch.int32, device=valid.device)
+    )
+    base = torch.arange(F, device=valid.device)[:, None] * S
+    dest = (base + incl - v)[valid]
+    outs = []
+    for op in ops:
+        out = torch.empty_like(op)
+        out.view(-1)[dest] = op[valid]
+        outs.append(out)
+    return outs, counts
+
+
+def _check_full(ops, valid):
+    if valid.dim() != 2:
+        raise ValueError(f"valid must be (F, S), got {tuple(valid.shape)}")
+    if valid.dtype != torch.bool:
+        raise TypeError(f"valid: dtype {valid.dtype}, want torch.bool")
+    if len(ops) != 3:
+        raise ValueError(f"K1F takes three operands, got {len(ops)}")
+    for k, t in enumerate(ops):
+        if t.dtype != torch.int32:
+            raise TypeError(f"operand {k}: dtype {t.dtype}, want torch.int32")
+        if t.shape != valid.shape:
+            raise ValueError(f"operand {k}: shape {tuple(t.shape)} != valid's")
+        if t.device != valid.device:
+            raise ValueError(
+                f"operand {k} lies on {t.device}, valid on {valid.device}"
+            )
+
+
+def _shift_compact_full_cuda(ops, valid):
+    for t in (*ops, valid):
+        if not t.is_contiguous():
+            raise ValueError("K1F takes contiguous (F, S) tensors")
+    lib = _load()
+    F, S = valid.shape
+    n_tiles = max(1, -(-S // lib.shift_compact_tile_pixels()))
+    dev = valid.device
+    outs = [torch.empty_like(o) for o in ops]
+    counts = torch.empty(F, dtype=torch.int32, device=dev)
+    scratch = torch.empty(2 * F * n_tiles, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.shift_compact_full(
+            valid.data_ptr(), *(o.data_ptr() for o in ops),
+            *(o.data_ptr() for o in outs), counts.data_ptr(),
+            scratch.data_ptr(), F, S, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"shift_compact_full kernel launch failed: CUDA error {rc}"
+        )
+    _count_full_launch()
+    return outs, counts
+
+
+def shift_compact_full(ops, valid):
+    """Compact three (F, S) int32 operands whose memory order is the
+    emission order (the wide words ``w0, w1, w2``).
+
+    Returns ``([o0, o1, o2], counts)``: each output ``(F, S)`` with the
+    frame's compacted prefix and an unspecified tail, and ``counts``
+    ``(F,)`` int32."""
+    ops = list(ops)
+    _check_full(ops, valid)
+    if valid.device.type == "cpu":
+        return shift_compact_full_reference(ops, valid)
+    if valid.device.type != "cuda":
+        raise NotImplementedError(f"no K1F kernel for device {valid.device}")
+    return _shift_compact_full_cuda(ops, valid)

@@ -1,4 +1,4 @@
-"""Tiled whole-frame reconstruction: the narrow main path.
+"""Tiled whole-frame reconstruction: the narrow and the wide path.
 
 Counterpart of ``tpu_vpcc.ops.tiled`` in its one production staging
 mode: host-packed, host-oriented "cat" inputs.
@@ -8,13 +8,24 @@ block and concatenated into one ``(F, nb, 3*res*res)`` cat, with
 SWAP-family blocks transposed so every tile is in patch memory order
 (:func:`stage_cat_inputs`).
 
-Device half (PyTorch on the tensors' device):
+Device half (PyTorch on the tensors' device), the narrow path
+(:func:`reconstruct_batch_pretiled_packed`, when :func:`narrow_emit_ok`):
 
   1. one row gather of each owned group's cat row (:func:`_gather_tiles`);
   2. the narrow words stage (:func:`_tiles_to_words`): depth to 3D from
      the per-group fields, D1 dedup and validity, the axis permutation
      folded into per-group multipliers, and a pass-through colour word;
   3. compaction to emission order (``shift_compact_ops``, kernel K1).
+
+The wide path (:func:`reconstruct_batch_pretiled`: geometry or colour
+smoothing, 45-degree views):
+
+  1. gather and wide words in one kernel (``payload.wide_words``, K2W):
+     assembled x, y, z (inverse 45-degree rotation applied), the two
+     maps interleaved per pixel, packed into three u32 words;
+  2. optional geometry smoothing, then colour smoothing on the smoothed
+     positions (``smoothing``), on the words unpacked and repacked;
+  3. full-order compaction (``shift_compact_full``, K1F).
 
 Integer carriers: torch on the CPU has no ``>>``/``<<`` on uint32 or
 uint16, so packed words travel as int32 (u32 bit patterns) and ``zs``
@@ -56,20 +67,13 @@ def tiled_supported(cfg: FrameConfig) -> bool:
 
 def narrow_emit_ok(cfg: FrameConfig) -> bool:
     """The narrow path needs no unpacked coordinates mid-pipeline:
-    smoothing and 45-degree views take the wide path."""
+    smoothing and 45-degree views take the wide path. (The reference's
+    predicate also bounds the sort key's index bits; K1 has no key.)"""
     return (
         cfg.smoothing is None
         and cfg.attr_smoothing is None
         and not cfg.additional_planes
     )
-
-
-def require_narrow(cfg: FrameConfig) -> None:
-    if not narrow_emit_ok(cfg):
-        raise UnsupportedFeature(
-            "smoothing and 45-degree views need the wide path, not yet "
-            "ported (ROADMAP queue 1 #7)"
-        )
 
 
 def tile_plane(plane, tile: int):
@@ -222,9 +226,17 @@ def stage_cat_inputs(fields, occ_t, geo0_t, geo1_t, ay_t, au_t, av_t, cfg,
 
 
 def to_device(fields, cat, device):
-    """Host staging arrays -> device tensors (cat as int32 bit patterns)."""
+    """Host staging arrays -> device tensors (cat as int32 bit patterns).
+    Every group's ``G_BLOCKID`` must name a cat row: the CUDA kernels
+    read rows by it unchecked."""
     fields = np.ascontiguousarray(fields, dtype=np.int32)
     cat = np.ascontiguousarray(cat, dtype=np.uint32).view(np.int32)
+    blk = fields[..., G.G_BLOCKID]
+    if blk.size and (blk.min() < 0 or blk.max() >= cat.shape[1]):
+        raise ValueError(
+            f"G_BLOCKID outside the cat's {cat.shape[1]} blocks "
+            f"({blk.min()}..{blk.max()})"
+        )
     return (
         torch.from_numpy(fields).to(device),
         torch.from_numpy(cat).to(device),
@@ -279,17 +291,15 @@ def _wrap16(x):
     return (((x & 0xFFFF) ^ 0x8000) - 0x8000).to(torch.int16)
 
 
-def _tiles_to_words(fields, t_a, t_b, t_c, cfg):
-    """The narrow words stage on patch-order tiles. Returns ``(w0, zs,
-    wc, valid)``, each (F, S) in ``[D0 half | D1 half]`` order: ``w0``
-    int32 (x|y<<10|z<<20 under pack30, else x|y<<16), ``zs`` int16 or
-    None (pack30), ``wc`` int32 (y|u<<10|v<<20), ``valid`` bool."""
+def _slot_geometry(fields, t_a, cfg):
+    """Per-slot geometry shared by the narrow and wide words stages, on
+    plane-A tiles (F*G, res*res) in patch memory order. Returns ``(col,
+    tangent, bitangent, n0, n1, valid0, valid1)``: ``col(idx)`` the
+    (F*G, 1) column of a group field, then (F*G, res*res) int32
+    coordinates (16-bit masked) and bool validity per map."""
     res = cfg.occupancy_resolution
     T2 = res * res
-    F, Gc = fields.shape[0], fields.shape[1]
-    FG = F * Gc
-    half = Gc * T2
-    ff = fields.reshape(FG, G.N_GROUP_FIELDS)
+    ff = fields.reshape(-1, G.N_GROUP_FIELDS)
 
     def col(idx):
         return ff[:, idx : idx + 1]
@@ -325,6 +335,20 @@ def _tiles_to_words(fields, t_a, t_b, t_c, cfg):
         valid1 = occ_on & (n1 != n0)
     else:
         valid1 = torch.zeros_like(occ_on)
+    return col, tangent, bitangent, n0, n1, valid0, valid1
+
+
+def _tiles_to_words(fields, t_a, t_b, t_c, cfg):
+    """The narrow words stage on patch-order tiles. Returns ``(w0, zs,
+    wc, valid)``, each (F, S) in ``[D0 half | D1 half]`` order: ``w0``
+    int32 (x|y<<10|z<<20 under pack30, else x|y<<16), ``zs`` int16 or
+    None (pack30), ``wc`` int32 (y|u<<10|v<<20), ``valid`` bool."""
+    res = cfg.occupancy_resolution
+    F, Gc = fields.shape[0], fields.shape[1]
+    half = Gc * res * res
+    col, tangent, bitangent, n0, n1, valid0, valid1 = _slot_geometry(
+        fields, t_a, cfg
+    )
 
     def emit_concat(a, b):
         return torch.cat([a.reshape(F, half), b.reshape(F, half)], dim=1)
@@ -379,7 +403,9 @@ def reconstruct_batch_pretiled_packed(fields, cat, cfg):
     (F, nb, 3*res*res) int32 on one device. Returns ``(ops, counts)``:
     ``ops`` the compacted operands (2 under pack30, else 3), each (F, S)
     with the frame's prefix in emission order; ``counts`` (F,) int32."""
-    require_narrow(cfg)
+    if not narrow_emit_ok(cfg):
+        # the pipeline routes on narrow_emit_ok: reaching here is a bug
+        raise ValueError("narrow dispatch asked for a wide-path config")
     if not cfg.host_oriented:
         raise ValueError("the port stages host-oriented cats only")
     t_a, t_b, t_c = _gather_tiles(fields, cat, cfg)
@@ -387,19 +413,86 @@ def reconstruct_batch_pretiled_packed(fields, cat, cfg):
     return shift_compact_ops(w0, zs, wc, valid)
 
 
+def _lo16(w):
+    return w & 0xFFFF
+
+
+def _hi16(w):
+    return (w >> 16) & 0xFFFF
+
+
+def _pack16(a, b):
+    """int32 ``a | b << 16`` (u32 bit pattern) of two 16-bit values."""
+    return _wrap32(a.to(torch.int64) | (b.to(torch.int64) << 16))
+
+
+def smooth_words(fields, w0, w1, w2, valid, cfg):
+    """Geometry smoothing, then colour smoothing on the smoothed
+    positions (as ``tpu_vpcc.ops.tiled._grids_to_words`` orders them),
+    on the wide words: x, y, z, cy, cu, cv are unpacked, smoothed and
+    repacked. Lossless for every valid slot: its components are 16-bit
+    and its colours 10-bit. The cluster id of a slot is its group's
+    ``G_PATCH``."""
+    from .smoothing import smooth_batch, smooth_colors_batch
+
+    F, S = valid.shape
+    pid = fields[:, :, G.G_PATCH].repeat_interleave(
+        S // fields.shape[1], dim=1
+    )
+    xs, ys, zs = _lo16(w0), _hi16(w0), _lo16(w1)
+    cy, cu, cv = _hi16(w1), _lo16(w2), _hi16(w2)
+    if cfg.smoothing is not None:
+        xs, ys, zs = smooth_batch(xs, ys, zs, valid, pid, cfg.smoothing)
+        w0, w1 = _pack16(xs, ys), _pack16(zs, cy)
+    if cfg.attr_smoothing is not None:
+        cy, cu, cv = smooth_colors_batch(
+            xs, ys, zs, cy, cu, cv, valid, pid, cfg.attr_smoothing
+        )
+        w1, w2 = _pack16(zs, cy), _pack16(cu, cv)
+    return w0, w1, w2
+
+
+def reconstruct_batch_pretiled(fields, cat, cfg):
+    """The wide device dispatch on staged cat inputs: K2W (gather and
+    wide words), optional smoothing, K1F. Same inputs as
+    :func:`reconstruct_batch_pretiled_packed`. Returns ``(ops, counts)``:
+    ``ops`` the compacted ``(w0, w1, w2)``, each (F, S) with the
+    frame's prefix in emission order (unpack with
+    ``_unpack_ops_points(ops, "wide")``); ``counts`` (F,) int32."""
+    from .payload import wide_words
+    from .shift_compact import shift_compact_full
+
+    w0, w1, w2, valid = wide_words(fields, cat, cfg)
+    if cfg.smoothing is not None or cfg.attr_smoothing is not None:
+        w0, w1, w2 = smooth_words(fields, w0, w1, w2, valid, cfg)
+    return shift_compact_full((w0, w1, w2), valid)
+
+
 def _m10_triplet(w):
     """(F, n, 3) int32 from the three 10-bit fields of an int32 word."""
     return torch.stack([(w >> s) & 0x3FF for s in (0, 10, 20)], dim=-1)
 
 
-def _unpack_ops_points(ops):
+def _unpack_ops_points(ops, layout: str = "narrow"):
     """(positions, colors16), each (F, n, 3) int32, from compacted
-    operands: 2 = the pack30 layout, 3 = the split zs layout."""
+    operands. ``layout`` "narrow": 2 operands = the pack30 layout, 3 =
+    the split zs layout; "wide": ``(w0, w1, w2)`` = (x|y<<16, z|cy<<16,
+    cu|cv<<16), the counterpart of the reference's ``_unpack_sorted``.
+    The wide layout has three operands too, so it is never inferred."""
+    if layout == "wide":
+        s0, s1, s2 = ops
+        positions = torch.stack([_lo16(s0), _hi16(s0), _lo16(s1)], dim=-1)
+        # colours are 10-bit samples (the cat packs 10 bits): the mask
+        # changes no point, and keeps the unspecified tail past a
+        # frame's count inside the colour tables
+        colors16 = torch.stack([_hi16(s1), _lo16(s2), _hi16(s2)], dim=-1)
+        return positions, colors16 & 0x3FF
+    if layout != "narrow":
+        raise ValueError(f"unknown operand layout {layout!r}")
     if len(ops) == 2:
         return _m10_triplet(ops[0]), _m10_triplet(ops[1])
     s0, sz, sc = ops
     positions = torch.stack(
-        [s0 & 0xFFFF, (s0 >> 16) & 0xFFFF, sz.to(torch.int32) & 0xFFFF],
-        dim=-1,
+        [_lo16(s0), _hi16(s0), sz.to(torch.int32) & 0xFFFF], dim=-1,
     )
     return positions, _m10_triplet(sc)

@@ -3,11 +3,8 @@
     python -m tpu_vpcc_torch.runtime.cli -i stream.bin -o out_dir/ [--device cuda|cpu]
 
 The flags are ``tpu_vpcc.runtime.cli``'s, plus ``--device``, minus the
-no-op ``-d`` and ``--keep-intermediate-files``. The smoothing toggles
-are accepted but refused: smoothing needs the wide
-path, which is not ported yet (ROADMAP queue 1 #7). Several ``-i``
-inputs (the multi-stream batcher) are not ported yet either (ROADMAP
-queue 1 #9).
+no-op ``-d`` and ``--keep-intermediate-files``. Several ``-i`` inputs
+(the multi-stream batcher) are not ported yet (ROADMAP queue 1 #9).
 """
 
 from __future__ import annotations
@@ -42,11 +39,11 @@ def main(argv=None) -> int:
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="torch device of the reconstruction")
     parser.add_argument("--apply-geo-smoothing", action="store_true",
-                        help="Refused: smoothing is not ported yet")
+                        help="honor the geometry-smoothing SEI")
     parser.add_argument("--apply-occupancy-synthesis", action="store_true",
                         help="honor the occupancy-synthesis (PBF) SEI")
     parser.add_argument("--apply-attr-smoothing", action="store_true",
-                        help="Refused: smoothing is not ported yet")
+                        help="honor the attribute-smoothing SEI")
     parser.add_argument("--ply-format", choices=["ascii", "binary_little_endian"],
                         default="ascii", help="PLY output format")
     parser.add_argument("-v", "--verbose", action="count", default=0)
@@ -58,10 +55,6 @@ def main(argv=None) -> int:
     )
     print("PccAppDecoder (tpu_vpcc_torch)")
 
-    if args.apply_geo_smoothing or args.apply_attr_smoothing:
-        print("error: smoothing needs the wide path, not yet ported "
-              "(ROADMAP queue 1 #7)", file=sys.stderr)
-        return 2
     if len(args.compressed_stream_paths) > 1:
         print("error: several -i inputs need the multi-stream batcher, not "
               "yet ported (ROADMAP queue 1 #9)", file=sys.stderr)
@@ -81,6 +74,8 @@ def main(argv=None) -> int:
                 args.compressed_stream_paths[0],
                 use_device=not args.oracle,
                 num_threads=args.num_threads,
+                apply_geo_smoothing_type=args.apply_geo_smoothing,
+                apply_attr_smoothing_type=args.apply_attr_smoothing,
                 apply_occupancy_synthesis_type=args.apply_occupancy_synthesis,
                 device=args.device,
             )

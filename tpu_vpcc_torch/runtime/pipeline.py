@@ -9,16 +9,21 @@ Per GOF:
   2. host: decode the HEVC sub-streams (native libavcodec bridge);
   3. host: group tables and the packed, host-oriented cat staging
      (``ops.tiled.stage_cat_inputs``);
-  4. device (``Params.device``): cat-row gather, narrow words stage and
-     the K1 compaction (``ops.tiled.reconstruct_batch_pretiled_packed``);
-  5. device: slice each frame's compacted prefix, unpack it and convert
-     its colours, then copy it to the host as a ``PointSet3``.
+  4. device (``Params.device``), routed on ``ops.tiled.narrow_emit_ok``
+     as the reference routes:
+     - the narrow path: cat-row gather, narrow words stage and the K1
+       compaction (``ops.tiled.reconstruct_batch_pretiled_packed``);
+     - the wide path, for geometry or colour smoothing and 45-degree
+       views: the K2W gather and wide words, smoothing, and the K1F
+       compaction (``ops.tiled.reconstruct_batch_pretiled``);
+  5. device: slice each frame's compacted prefix, unpack it (the layout
+     the dispatch names) and convert its colours, then copy it to the
+     host as a ``PointSet3``.
 
 The jax-free host layers (V3C, atlas, video, the numpy oracle and the
 raw/EOM/PLR tails) are shared with ``tpu_vpcc``, not copied. What needs
-the wide path (smoothing, 45-degree views), the gather fallback
-(non-tileable orientations, samples wider than 10 bits) or a mesh is
-not ported yet and raises ``UnsupportedFeature``.
+the gather fallback (non-tileable orientations, samples wider than 10
+bits) or a mesh is not ported yet and raises ``UnsupportedFeature``.
 """
 
 from __future__ import annotations
@@ -1069,7 +1074,6 @@ def _gof_device_inputs(gof: GofData, metas, prebuilt, g_bucket: int) -> DeviceIn
     from tpu_vpcc.atlas.groups import N_GROUP_FIELDS
 
     from ..ops.tiled import (
-        require_narrow,
         stage_cat_inputs,
         tile_plane,
         tiled_supported,
@@ -1078,7 +1082,6 @@ def _gof_device_inputs(gof: GofData, metas, prebuilt, g_bucket: int) -> DeviceIn
 
     mc = gof.map_count
     cfg, tables = prebuilt
-    require_narrow(cfg)
     if not (
         tiled_supported(cfg)
         and gof.packed10_ok
@@ -1185,12 +1188,13 @@ def _u16_host(t) -> np.ndarray:
     return t.to(torch.int16).cpu().numpy().view(np.uint16)
 
 
-def _take_prefix_packed(ops, b: int, color_mode: str):
+def _take_prefix_packed(ops, b: int, color_mode: str, layout: str):
     """Slice the first ``b`` compacted slots of every frame, unpack them
-    and convert their colours on the device, then copy to the host."""
+    (``layout``: see ``ops.tiled._unpack_ops_points``) and convert their
+    colours on the device, then copy to the host."""
     from ..ops.tiled import _unpack_ops_points
 
-    pos, col16 = _unpack_ops_points([o[:, :b] for o in ops])
+    pos, col16 = _unpack_ops_points([o[:, :b] for o in ops], layout)
     col = _convert_colors_device(col16, color_mode)
     col_h = col.cpu().numpy() if col.dtype == torch.uint8 else _u16_host(col)
     return _u16_host(pos), col_h
@@ -1207,22 +1211,30 @@ def _prefix_bucket(counts, S: int) -> int:
     return min(bucket, S)
 
 
-def _fetch_prefixes_packed(ops, counts, color_mode: str = "raw"):
+def _fetch_prefixes_packed(ops, counts, color_mode: str = "raw",
+                           layout: str = "narrow"):
     """Device -> host fetch of a dispatch's compacted points: positions
     (F, b, 3) u16 and colours (F, b, 3), u8 unless ``color_mode`` is
-    'raw' (u16 samples)."""
+    'raw' (u16 samples). ``layout`` names the operands' layout: "narrow"
+    (K1's pack30 or split operands) or "wide" (K1F's three words)."""
     bucket = _prefix_bucket(counts, ops[0].shape[1])
     if bucket == 0:
         z = np.empty((counts.shape[0], 0, 3), dtype=np.uint16)
         cz = z if color_mode == "raw" else z.astype(np.uint8)
         return z, cz
-    return _take_prefix_packed(ops, bucket, color_mode)
+    return _take_prefix_packed(ops, bucket, color_mode, layout)
 
 
 def _dispatch_device(di: DeviceInputs, device, stats=None):
-    """Run one device dispatch; returns a per-frame list of host
+    """Run one device dispatch, on the narrow path or, for smoothing
+    and 45-degree views, the wide one; returns a per-frame list of host
     (positions (n,3) u16, colors (n,3)) in emission order."""
-    from ..ops.tiled import reconstruct_batch_pretiled_packed, to_device
+    from ..ops.tiled import (
+        narrow_emit_ok,
+        reconstruct_batch_pretiled,
+        reconstruct_batch_pretiled_packed,
+        to_device,
+    )
 
     if di.n_frames > DEVICE_BATCH:
         out = []
@@ -1235,13 +1247,18 @@ def _dispatch_device(di: DeviceInputs, device, stats=None):
             )
             out.extend(_dispatch_device(sub, device, stats=stats))
         return out
+    layout = "narrow" if narrow_emit_ok(di.cfg) else "wide"
+    dispatch = (
+        reconstruct_batch_pretiled_packed if layout == "narrow"
+        else reconstruct_batch_pretiled
+    )
     with _st(stats, "recon_dispatch"):
         fields, cat = to_device(*di.arrays, device)
-        ops, counts = reconstruct_batch_pretiled_packed(fields, cat, di.cfg)
+        ops, counts = dispatch(fields, cat, di.cfg)
         counts = counts.cpu().numpy()  # device sync
     with _st(stats, "recon_fetch"):
         pos_all, col_all = _fetch_prefixes_packed(
-            ops, counts, color_mode=di.color_mode
+            ops, counts, color_mode=di.color_mode, layout=layout
         )
     return [
         (pos_all[k, : counts[k]], col_all[k, : counts[k]])
