@@ -8,10 +8,11 @@ and the CUDA toolkit (nvcc). Phases, each of which exits non-zero on
 failure:
 
   1. device and build: the card's name and power limit, the builds of
-     both kernel libraries (K1 and K1F in ``shift_compact.cu``, K2W in
-     ``wide_words.cu``; one nvcc each, started together) with nvcc's
-     ``-Xptxas -v`` lines, and whether the host video bridge (libavcodec)
-     loads;
+     the four kernel libraries (K1 and K1F in ``shift_compact.cu``, K2W
+     in ``wide_words.cu``, K3 in ``cursor_compact.cu``, the probes P1-P12
+     of K4-K6 in ``probes.cu``; one nvcc each, started together) with
+     nvcc's ``-Xptxas -v`` lines, and whether the host video bridge
+     (libavcodec) loads;
   2. K1 against its plain PyTorch version on the card: densities 0, 0.3,
      0.7, 1 and all-D1-invalid, F = 1 and 2, pack30 and split operands,
      the flagship slot extent and a small odd tile count. Counts equal,
@@ -43,7 +44,22 @@ failure:
      staging, and the Decoder's frames/s with one and two GOFs in flight;
   6. a committed fixture stream through ``Decoder`` on the card, whose
      PLY bytes must equal the port's oracle path. Not run, and said so,
-     only when phase 1 found that the host video bridge cannot load.
+     only when phase 1 found that the host video bridge cannot load;
+  7. K3, the cursor compaction experiment's kernel, against its plain
+     version: the two-frame flagship wide extent (448 chunks) and two odd
+     chunk counts at densities 0, 0.3, 0.7 and 1, then the first
+     flagship GOF's own wide words. Counts equal, covered windows
+     byte-equal; CUDA-event timings of both, and of K3 and K1F back to
+     back on those words. Then the experiment's entry
+     point (``tpu_vpcc_torch.tools.compaction_experiment``) at batch 2,
+     with the K3 launch counter read around it: its per-variant ms per
+     frame, ``ceiling_ms``, ``floor_ms`` and the decision rule's verdict;
+  8. the three probe tools (``tpu_vpcc_torch.tools.hopper_probe*``)
+     through their entry points, with the launch counters of P1-P12 read
+     around them; then every probe's kernel against its plain version and
+     the probe's numpy ``want``, at the probe's own shape and at about
+     64 MiB per operand, and the CUDA-event times of kernel and plain
+     version at both shapes.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come one
 JSON line of per-kernel results and the ``nvidia-smi`` name and power
@@ -67,7 +83,15 @@ K1_REPLACES = "tpu_vpcc/ops/shift_compact.py:127"
 K1F_REPLACES = "tpu_vpcc/ops/shift_compact.py:528"
 K2W_SOURCE = "tpu_vpcc_torch/csrc/wide_words.cu"
 K2W_REPLACES = "tpu_vpcc/ops/pallas_kernels.py:38"
-KERNEL_LIBS = ("shift_compact", "wide_words")
+K3_SOURCE = "tpu_vpcc_torch/csrc/cursor_compact.cu"
+K3_REPLACES = "tools/compaction_experiment.py:515"
+PROBES_SOURCE = "tpu_vpcc_torch/csrc/probes.cu"
+PROBE_REPLACES = {
+    "hopper_probe": "tools/pallas_probe.py:55",
+    "hopper_probe2": "tools/pallas_probe2.py:60",
+    "hopper_probe3": "tools/pallas_probe3.py:37",
+}
+KERNEL_LIBS = ("shift_compact", "wide_words", "cursor_compact", "probes")
 
 
 class SmokeFailure(Exception):
@@ -106,6 +130,23 @@ def event_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def loop_ms(fn, calls: int = 50, warmup: int = 3) -> float:
+    """CUDA-event time of ``calls`` back-to-back ``fn()`` per call, in ms:
+    the card's time when the host keeps ahead of it."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
+
+
 def prefix_err(outs_a, outs_b, counts) -> int:
     """Max |a - b| over every frame's compacted prefix (0 = byte-equal)."""
     err = 0
@@ -121,7 +162,8 @@ def phase_build():
     import torch
 
     from tpu_vpcc_torch.ops import _build
-    from tpu_vpcc_torch.ops import payload
+    from tpu_vpcc_torch.ops import cursor_compact as k3
+    from tpu_vpcc_torch.ops import payload, probes
     from tpu_vpcc_torch.ops import shift_compact as sc
 
     print(f"device: {torch.cuda.get_device_name(0)}")
@@ -132,8 +174,8 @@ def phase_build():
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(KERNEL_LIBS)) as pool:
         list(pool.map(_build.build, KERNEL_LIBS))
-    sc._load()
-    payload._load()
+    for mod in (sc, payload, k3, probes):
+        mod._load()
     print(f"kernel builds ({', '.join(KERNEL_LIBS)}, in parallel): "
           f"{time.perf_counter() - t0:.2f} s")
     for name in KERNEL_LIBS:
@@ -696,6 +738,232 @@ def phase_stream():
           f"card, PLY bytes equal to the oracle path")
 
 
+def _covered_err(got, ref, valid) -> int:
+    """Max |a - b| over K3's covered windows (0 = byte-equal)."""
+    from tpu_vpcc_torch.ops import cursor_compact as k3
+
+    cov = k3.covered_elements(valid)
+    return words_err(*zip(*((a.reshape(-1)[:cov], b.reshape(-1)[:cov])
+                            for a, b in zip(got[:3], ref[:3]))))
+
+
+def phase_cursor(gof, S_flag: int):
+    """K3 against its plain version, on random words and on the first
+    flagship GOF's wide words; then the compaction experiment's ``main``
+    at batch 2, counted. Returns K3's kernels entry."""
+    import torch
+
+    from tpu_vpcc_torch.ops import cursor_compact as k3
+    from tpu_vpcc_torch.ops import payload
+    from tpu_vpcc_torch.ops.tiled import to_device
+    from tpu_vpcc_torch.runtime import pipeline as P
+    from tpu_vpcc_torch.tools import compaction_experiment as E
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    lo, hi = -(2 ** 31), 2 ** 31 - 1
+    err, n_cases = 0, 0
+    # the two-frame flagship wide extent (448 chunks) and two odd chunk
+    # counts (7 chunks in one frame and across two)
+    for F, S in ((2, S_flag), (1, 7 * k3.CH), (2, 7 * k3.CH // 2)):
+        for density in (0.0, 0.3, 0.7, 1.0):
+            w = [torch.randint(lo, hi, (F, S), dtype=torch.int32, device=dev,
+                               generator=gen) for _ in range(3)]
+            valid = torch.rand((F, S), device=dev, generator=gen) < density
+            got = k3.cursor_compact(*w, valid)
+            ref = k3.cursor_compact_reference(*w, valid)
+            torch.cuda.synchronize()
+            check(torch.equal(got[3], ref[3]) and int(got[3]) ==
+                  int(valid.sum()), f"K3 count {int(got[3])} != plain "
+                  f"{int(ref[3])} (F={F} S={S} density={density})")
+            e = _covered_err(got, ref, valid)
+            check(e == 0, f"K3 differs from plain on the covered windows "
+                          f"(F={F} S={S} density={density}, max abs err {e})")
+            err = max(err, e)
+            n_cases += 1
+            print(f"K3 vs plain: F={F} S={S} ({F * S // k3.CH} chunks) "
+                  f"density={density}: count {int(got[3])} equal, "
+                  f"{k3.covered_elements(valid)} covered elements equal")
+
+    # the flagship's own wide words (K2W on the first GOF's staging)
+    cfg, tables, g_bucket = P._gof_tables_and_bucket(gof)
+    di = P._gof_device_inputs(gof, gof.metas, (cfg, tables), g_bucket)
+    fields, cat = to_device(*di.arrays, dev)
+    w0, w1, w2, valid = payload.wide_words(fields, cat, di.cfg)
+    got = k3.cursor_compact(w0, w1, w2, valid)
+    ref = k3.cursor_compact_reference(w0, w1, w2, valid)
+    torch.cuda.synchronize()
+    nc = valid.numel() // k3.CH
+    _, _, win = k3._windows(valid)
+    writers = int((win[1:] != win[:-1]).sum()) + 1
+    check(torch.equal(got[3], ref[3]) and int(got[3]) == int(valid.sum()),
+          "K3 count differs at the flagship")
+    e = _covered_err(got, ref, valid)
+    check(e == 0, f"K3 differs from plain at the flagship ({e})")
+    err = max(err, e)
+    print(f"K3 vs plain on the flagship's wide words: F={valid.shape[0]} "
+          f"S={valid.shape[1]}, {nc} chunks, {writers} last writers, count "
+          f"{int(got[3])} equal, covered windows equal")
+    print(f"phase 7: {n_cases + 1} K3 cases byte-equal to the plain version")
+    runs = {
+        "k3": lambda: k3._cursor_compact_cuda(w0, w1, w2, valid),
+        "k3_plain": lambda: k3.cursor_compact_reference(w0, w1, w2, valid),
+    }
+    ms = {name: [] for name in runs}
+    for name in ("k3_plain", "k3", "k3", "k3_plain"):  # in turns
+        ms[name].append(event_ms(runs[name]))
+    med = {name: statistics.median(v) for name, v in ms.items()}
+    smi = nvidia_smi_line()
+    print(f"K3 timings (median CUDA events, {smi}): K3 {med['k3']:.4f} ms "
+          f"(runs {ms['k3']}) vs plain {med['k3_plain']:.4f} ms (runs "
+          f"{ms['k3_plain']}), two flagship frames")
+    # a single call's event window also holds the host's enqueue; back to
+    # back, the card's own time per call (K3 against K1F on the same words)
+    from tpu_vpcc_torch.ops import shift_compact as sc
+
+    b2b = {
+        "k3": loop_ms(runs["k3"]),
+        "k1f": loop_ms(lambda: sc._shift_compact_full_cuda((w0, w1, w2),
+                                                           valid)),
+    }
+    print(f"back to back (CUDA events over 50 calls, {smi}): K3 "
+          f"{b2b['k3']:.4f} ms, K1F {b2b['k1f']:.4f} ms per call, two "
+          f"flagship frames")
+
+    # the experiment's entry point, counted
+    torch.cuda.synchronize()
+    k3.reset_launches()
+    t0 = time.perf_counter()
+    rc = E.main(["2", "20"])
+    torch.cuda.synchronize()
+    launches = k3.launches
+    check(rc == 0, f"the compaction experiment exited {rc}")
+    check(launches > 0, "the compaction experiment launched K3 no time")
+    print(f"compaction experiment: batch 2 in {time.perf_counter() - t0:.2f} "
+          f"s, K3 launches {launches} ({smi})")
+    return {
+        "name": "cursor_compact",
+        "route": "cuda",
+        "source": K3_SOURCE,
+        "replaces": K3_REPLACES,
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": med["k3"],
+        "plain_ms": med["k3_plain"],
+        "card": smi,
+    }
+
+
+def _probe_big_shapes():
+    """Per probe, its module's function at about 64 MiB per operand."""
+    import numpy as np
+
+    from tpu_vpcc_torch.tools import hopper_probe as H1
+    from tpu_vpcc_torch.tools import hopper_probe2 as H2
+    from tpu_vpcc_torch.tools import hopper_probe3 as H3
+
+    steps = np.random.default_rng(4).integers(0, 513, 255)
+    offs = np.concatenate([[0], np.cumsum(steps)])  # overlapping, in order
+    return {
+        "P1": lambda d, run: H1.probe_rolls(d, run, R=131072),
+        "P2": lambda d, run: H1.probe_flat_shift(d, run, R=131072,
+                                                 ks=(1, 1024)),
+        "P3": lambda d, run: H1.probe_interleave(d, run, R=131072)[:1],
+        "P4": lambda d, run: H1.probe_dyn_dma(d, run, nstep=256,
+                                              step_rows=512, offs=offs),
+        "P5": lambda d, run: H2.probe_bitcast(d, run, R=32768),
+        "P6": lambda d, run: H2.probe_wide_u16(d, run, R=32768,
+                                               ks=(1, 4096)),
+        "P7": lambda d, run: H2.probe_dynamic_roll(d, run, R=65536),
+        "P8": lambda d, run: H2.probe_mini_compact(d, run, n_seg=8192),
+        "P9": lambda d, run: H3.probe_interleave(d, run, R=32768),
+        "P10": lambda d, run: H3.probe_repeat(d, run, R=32768),
+        "P11": lambda d, run: H3.probe_rev(d, run, R=32768),
+        "P12": lambda d, run: H3.probe_interleave16(d, run, R=65536),
+    }
+
+
+def _probe_check(cases_k, cases_p, where):
+    """Kernel cases against the plain cases and both against ``want``."""
+    import numpy as np
+
+    for k, p in zip(cases_k, cases_p):
+        same = k.got.shape == p.got.shape and np.array_equal(k.got, p.got)
+        check(same, f"{k.name} ({where}): kernel differs from plain")
+        for c, who in ((k, "kernel"), (p, "plain")):
+            check(c.got.shape == c.want.shape
+                  and np.array_equal(c.got, c.want),
+                  f"{c.name} ({where}): {who} differs from want")
+        print(f"{k.name} ({where}): kernel OK, plain OK, equal")
+
+
+def phase_probes():
+    """The three probe tools through their entry points, counted; every
+    probe against its plain version and its ``want`` at the probe's shape
+    and at about 64 MiB per operand; the times of both. Returns the three
+    libraries' kernels entries."""
+    import torch
+
+    from tpu_vpcc_torch.ops import probes
+    from tpu_vpcc_torch.tools import hopper_probe as H1
+    from tpu_vpcc_torch.tools import hopper_probe2 as H2
+    from tpu_vpcc_torch.tools import hopper_probe3 as H3
+
+    tools = {"hopper_probe": H1, "hopper_probe2": H2, "hopper_probe3": H3}
+    torch.cuda.synchronize()
+    probes.reset_launches()
+    for name, mod in tools.items():
+        rc = mod.main(["--device", "cuda"])
+        check(rc == 0, f"{name} exited {rc}")
+    torch.cuda.synchronize()
+    launches = dict(probes.launches)
+    check(all(launches[p] > 0 for p in probes.PROBES),
+          f"a probe kernel was launched no time: {launches}")
+    print(f"probe tools: launches per probe {launches}")
+
+    dev = torch.device("cuda")
+    big = _probe_big_shapes()
+    small = [fn for mod in tools.values() for fn in mod.PROBE_FUNCTIONS]
+    timed = {}  # probe -> {shape: (kernel ms, plain ms)}
+    for where, fns in (("probe shape", small), ("64 MiB", big.values())):
+        for fn in fns:
+            cases_k = fn(dev, probes.call)
+            cases_p = fn(dev, probes.plain)
+            torch.cuda.synchronize()
+            _probe_check(cases_k, cases_p, where)
+            c = cases_k[0]
+            t = timed.setdefault(c.probe, {})
+            if where in t:
+                continue
+            ms = {"kernel": [], "plain": []}
+            runs = {"kernel": lambda c=c: probes.call(c.probe, *c.args),
+                    "plain": lambda c=c: probes.plain(c.probe, *c.args)}
+            for who in ("plain", "kernel", "kernel", "plain"):  # in turns
+                ms[who].append(event_ms(runs[who], reps=10))
+            t[where] = (statistics.median(ms["kernel"]),
+                        statistics.median(ms["plain"]))
+    smi = nvidia_smi_line()
+    for probe in probes.PROBES:
+        print(f"{probe} timings (median CUDA events, {smi}): " + "; ".join(
+            f"{where}: kernel {k:.4f} ms vs plain {p:.4f} ms"
+            for where, (k, p) in timed[probe].items()))
+    print(f"phase 8: every probe OK against its plain version and want")
+    entries = []
+    for lib, members in probes.LIBRARIES.items():
+        entries.append({
+            "name": lib,
+            "route": "cuda",
+            "source": PROBES_SOURCE,
+            "replaces": PROBE_REPLACES[lib],
+            "launches": sum(launches[p] for p in members),
+            "max_abs_err": 0,  # every case was checked byte-equal
+            "ms": sum(timed[p]["64 MiB"][0] for p in members),
+            "plain_ms": sum(timed[p]["64 MiB"][1] for p in members),
+            "card": smi,
+        })
+    return entries
+
+
 def main() -> int:
     try:
         import torch
@@ -724,12 +992,17 @@ def main() -> int:
         else:
             print("stream phase: not run: the host video bridge cannot load "
                   "on this machine (phase 1)")
+        k3 = phase_cursor(gofs[0], S_flag)
+        probe_libs = phase_probes()
         check("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": [k1] + wide}))
-    print(nvidia_smi_line())
+    smi = nvidia_smi_line()
+    kernels = [dict(k, card=k.get("card", smi))
+               for k in [k1] + wide + [k3] + probe_libs]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,284 @@
+"""The Hopper probes P1-P12 of the PyTorch port against tpu_vpcc's Mosaic
+probes, on the CPU.
+
+One case per ``pallas_call`` of ``tools/pallas_probe.py``,
+``tools/pallas_probe2.py`` and ``tools/pallas_probe3.py`` (14 in all).
+Each runs the reference probe function with its module's ``INTERPRET``
+set, captures what its ``report`` (and, for P9-P12, its ``run``) got, and
+holds the port's probe (``tpu_vpcc_torch.tools.hopper_probe*``, whose
+plain versions run on the CPU) against:
+
+  - the probe's numpy ``want``, always;
+  - the reference's interpret-mode output, byte for byte, where the
+    reference's own check passed there.
+
+Three reference formulations do not pass their check in interpret mode
+(P3's repeat-dilate reports FAIL, P5's u32->u16 bitcast and P8 raise);
+there the port is held against ``want`` only, and the case pins that the
+reference still fails. The kernels themselves are held against the plain
+versions by the ``cuda``-marked tests, on a card.
+"""
+import importlib.util
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_vpcc_torch.ops import probes
+from tpu_vpcc_torch.tools import hopper_probe as H1
+from tpu_vpcc_torch.tools import hopper_probe2 as H2
+from tpu_vpcc_torch.tools import hopper_probe3 as H3
+
+ROOT = Path(__file__).resolve().parent.parent
+_REFERENCE = {}
+
+
+def _reference_run(module: str, function: str):
+    """Run ``tools/<module>.py::<function>`` in interpret mode (once per
+    process); returns ``{name: (got, want)}`` from its ``report`` calls
+    and ``{name: out}`` from its ``run`` calls (pallas_probe3)."""
+    key = (module, function)
+    if key not in _REFERENCE:
+        spec = importlib.util.spec_from_file_location(
+            f"_ref_{module}", ROOT / "tools" / f"{module}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        reports, runs = {}, {}
+
+        def report(name, got, want):
+            reports[name] = (np.asarray(got), np.asarray(want))
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(mod, "INTERPRET", True)
+            mp.setattr(mod, "report", report)
+            if hasattr(mod, "run"):
+                real_run = mod.run
+
+                def run(name, *args):
+                    runs[name] = real_run(name, *args)
+                    return runs[name]
+
+                mp.setattr(mod, "run", run)
+            getattr(mod, function)()
+        _REFERENCE[key] = (reports, runs)
+    return _REFERENCE[key]
+
+
+_PORT = {}
+
+
+def _port_cases(fn):
+    if fn not in _PORT:
+        before = dict(probes.launches)
+        _PORT[fn] = {c.name: c for c in fn("cpu")}
+        assert probes.launches == before  # the CPU runs the plain versions
+    return _PORT[fn]
+
+
+def _p5_want():
+    """``probe_bitcast``'s want (tools/pallas_probe2.py:52-67); the probe
+    raises before it reaches it in interpret mode."""
+    R = 4
+    lo = np.arange(R * 512, dtype=np.uint32).reshape(R, 512) % 60000
+    hi = (np.arange(R * 512, dtype=np.uint32).reshape(R, 512) * 7 + 3) % 60000
+    want = np.empty((R, 1024), np.uint16)
+    want[:, 0::2] = lo.astype(np.uint16)
+    want[:, 1::2] = hi.astype(np.uint16)
+    return want
+
+
+def _p8_want():
+    """``probe_mini_compact``'s want (tools/pallas_probe2.py:144-203); the
+    probe raises before it reaches it in interpret mode."""
+    R, L = 4, 512
+    P = R * L
+    r = np.random.default_rng(0)
+    v0 = r.random(P) < 0.6
+    v1 = r.random(P) < 0.5
+    w0d0 = r.integers(0, 1 << 30, P, dtype=np.uint32)
+    w0d1 = r.integers(0, 1 << 30, P, dtype=np.uint32)
+    inter = np.empty(2 * P, np.uint32)
+    inter[0::2] = w0d0
+    inter[1::2] = w0d1
+    vv = np.empty(2 * P, bool)
+    vv[0::2] = v0
+    vv[1::2] = v1
+    return inter[vv]
+
+
+_P2_NAMES = [f"P2 flat shift {k}" for k in (1, 2, 4, 32, 127, 128, 256, 1024)]
+_P6_NAMES = [f"P6 u16 flat shift {k} @ lanes=1024"
+             for k in (1, 5, 1023, 1024, 4096)]
+
+# case: (reference module, function, port function, port names, reference
+# name override, what the reference does in interpret mode, the
+# reference's want where it never reaches its report)
+CASES = {
+    "P1": ("pallas_probe", "probe_rolls", H1.probe_rolls,
+           ["P1 lane roll -3", "P1 row roll -2"], None, "ok", None),
+    "P2": ("pallas_probe", "probe_flat_shift", H1.probe_flat_shift,
+           _P2_NAMES, None, "ok", None),
+    "P3-stack": ("pallas_probe", "probe_interleave", H1.probe_interleave,
+                 ["P3 stack-reshape interleave"], None, "ok", None),
+    "P3-dilate": ("pallas_probe", "probe_interleave", H1.probe_interleave,
+                  ["P3 repeat-dilate interleave"], None, "fail", None),
+    "P4": ("pallas_probe", "probe_dyn_dma", H1.probe_dyn_dma,
+           ["P4 dyn-offset DMA"], None, "ok", None),
+    "P5-split": ("pallas_probe2", "probe_bitcast", H2.probe_bitcast,
+                 ["P5 bitcast u32->u16 interleave order"], None, "raises",
+                 _p5_want),
+    "P5-roundtrip": ("pallas_probe2", "probe_bitcast", H2.probe_bitcast,
+                     ["P5 bitcast roundtrip"], None, "ok", None),
+    "P6": ("pallas_probe2", "probe_wide_u16", H2.probe_wide_u16,
+           _P6_NAMES, None, "ok", None),
+    "P7": ("pallas_probe2", "probe_dynamic_roll", H2.probe_dynamic_roll,
+           ["P7 dynamic lane roll"], None, "ok", None),
+    "P8": ("pallas_probe2", "probe_mini_compact", H2.probe_mini_compact,
+           ["P8 mini shift-compact (prefix)"], None, "raises", _p8_want),
+    "P9": ("pallas_probe3", "main", H3.probe_interleave,
+           ["P9 minor-dim interleave reshape"], None, "ok", None),
+    "P10": ("pallas_probe3", "main", H3.probe_repeat,
+            ["P10 pltpu.repeat tile-concat"], "P10", "run", None),
+    "P11": ("pallas_probe3", "main", H3.probe_rev,
+            ["P11 lax.rev lanes"], None, "ok", None),
+    "P12": ("pallas_probe3", "main", H3.probe_interleave16,
+            ["P12 u16 interleave reshape"], None, "ok", None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_port_probe_matches_reference(case):
+    module, function, port_fn, names, ref_name, kind, ref_want = CASES[case]
+    reports, runs = _reference_run(module, function)
+    port = _port_cases(port_fn)
+    for name in names:
+        c = port[name]
+        # the probe's want, always
+        assert c.got.shape == c.want.shape
+        np.testing.assert_array_equal(c.got, c.want)
+        if kind == "raises":
+            # the reference's formulation raised in interpret mode before
+            # its report: the port is held against the probe's want only
+            assert name not in reports
+            np.testing.assert_array_equal(c.want, ref_want())
+        elif kind == "fail":
+            # the reference's formulation fails its own check in
+            # interpret mode: the port is held against the want only
+            got, want = reports[name]
+            np.testing.assert_array_equal(c.want, want)
+            assert got.shape == want.shape and not np.array_equal(got, want)
+        elif kind == "run":
+            # P10 prints a semantics verdict, not a report: its output is
+            # the tile-concat the port computes
+            np.testing.assert_array_equal(c.got, np.asarray(runs[ref_name]))
+        else:
+            got, want = reports[name]
+            np.testing.assert_array_equal(c.want, want)
+            np.testing.assert_array_equal(want, got)  # the reference: OK
+            assert c.got.dtype == got.dtype
+            np.testing.assert_array_equal(c.got, got)
+
+
+def test_cpu_call_is_plain_and_uncounted():
+    x = torch.arange(64 * 8, dtype=torch.int32).reshape(8, 64)
+    before = dict(probes.launches)
+    assert torch.equal(probes.call("P11", x), torch.flip(x, (1,)))
+    assert torch.equal(probes.call("P1", x, 3, 1), torch.roll(x, 3, 1))
+    assert torch.equal(probes.call("P5", x, torch.int16),
+                       x.view(torch.int16))
+    assert probes.launches == before
+    with pytest.raises(ValueError, match="unknown probe"):
+        probes.call("P13", x)
+
+
+def test_p4_last_step_wins_out_of_order():
+    """Offsets that are not in order still apply in step order."""
+    x = torch.arange(3 * 2 * 4, dtype=torch.int32).reshape(3, 2, 4)
+    offs = torch.tensor([3, 0, 2], dtype=torch.int32)
+    out = probes.call("P4", x, offs, 6)
+    want = torch.zeros((6, 4), dtype=torch.int32)
+    for i, o in enumerate(offs.tolist()):
+        want[o : o + 2] = x[i] + 1000 * i
+    assert torch.equal(out, want)
+    assert out[3].tolist() == (x[2, 1] + 2000).tolist()
+
+
+def test_p8_segments_compact_independently():
+    c = H2.probe_mini_compact("cpu", n_seg=3)[0]
+    np.testing.assert_array_equal(c.got, c.want)
+    assert c.got.size > 3 * 2048
+
+
+def test_tools_run_on_cpu_and_stay_jax_free():
+    """The four tool entry points with ``--device cpu`` (the experiment at
+    256²): exit 0, the report and JSON lines, and no jax in the process."""
+    script = """
+import runpy, sys
+for argv in (["hopper_probe", "--device", "cpu"],
+             ["hopper_probe2", "--device", "cpu"],
+             ["hopper_probe3", "--device", "cpu"],
+             ["compaction_experiment", "2", "1", "--device", "cpu",
+              "--size", "256", "--patches", "8"]):
+    sys.argv = argv
+    try:
+        runpy.run_module("tpu_vpcc_torch.tools." + argv[0],
+                         run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, (argv, e.code)
+mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+assert not mods, mods
+print("JAX_FREE")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = proc.stdout
+    assert "JAX_FREE" in out
+    assert "FAIL" not in out
+    for line in ("P1 lane roll -3: OK", "P4 dyn-offset DMA: OK",
+                 "P5 bitcast u32->u16 interleave order: OK",
+                 "P8 mini shift-compact (prefix): OK",
+                 "P10 pltpu.repeat tile-concat: OK",
+                 "P12 u16 interleave reshape: OK"):
+        assert line in out
+    assert out.count(": OK") == 13 + 9 + 4
+    assert '"floor_ms"' in out and '"ceiling_ms"' in out
+    assert '"total_points_check": 60726' in out
+    assert "verdict: floor" in out
+
+
+def test_tools_need_a_card_unless_told_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for mod in (H1, H2, H3):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            mod.main([])
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tool", ["hopper_probe", "hopper_probe2",
+                                  "hopper_probe3"])
+def test_kernels_match_plain_on_card(tool):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (on the card: pytest -m cuda)")
+    mod = {"hopper_probe": H1, "hopper_probe2": H2, "hopper_probe3": H3}[tool]
+    before = sum(probes.launches[p] for p in probes.LIBRARIES[tool])
+    kernel = [c for fn in mod.PROBE_FUNCTIONS for c in fn("cuda")]
+    torch.cuda.synchronize()
+    assert sum(probes.launches[p] for p in probes.LIBRARIES[tool]) > before
+    plain = [c for fn in mod.PROBE_FUNCTIONS
+             for c in fn("cuda", probes.plain)]
+    for k, p in zip(kernel, plain):
+        np.testing.assert_array_equal(k.got, k.want)
+        np.testing.assert_array_equal(k.got, p.got)
