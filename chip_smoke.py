@@ -25,8 +25,9 @@ failure:
      flight (group tables, cat staging, gather + words + K1 on the card,
      prefix fetch with yuv10 -> rgb8 on the card, PointSet3), each frame
      byte-equal to the numpy oracle, with the K1 launch counter read
-     around that run; then CUDA-event timings and the Decoder's
-     throughput with one and two GOFs in flight;
+     around that run; then K1's times (below), CUDA-event timings of the
+     other stages and the Decoder's throughput with one and two GOFs in
+     flight;
   4. K2W against its plain version at the flagship dispatch shape, on
      the first flagship GOF's staged fields and cat: the plain wide
      layout, 45-degree views (random G_PLANE in 0..3), a trailing-layer
@@ -39,9 +40,9 @@ failure:
      (``_reconstruct_gof_oracle``), the K2W and K1F launch counters read
      around the run, and the smoothed frames differ from phase 3's
      unsmoothed decode of the same frames in a position and a colour;
-     then CUDA-event timings of K2W, K1F, the smoothing and the plain
-     versions in turns, the wide dispatch, the fetch and the host
-     staging, and the Decoder's frames/s with one and two GOFs in flight;
+     then the times of K2W and K1F (below), CUDA-event timings of the
+     smoothing, the wide dispatch, the fetch and the host staging, and
+     the Decoder's frames/s with one and two GOFs in flight;
   6. a committed fixture stream through ``Decoder`` on the card, whose
      PLY bytes must equal the port's oracle path. Not run, and said so,
      only when phase 1 found that the host video bridge cannot load;
@@ -49,17 +50,29 @@ failure:
      version: the two-frame flagship wide extent (448 chunks) and two odd
      chunk counts at densities 0, 0.3, 0.7 and 1, then the first
      flagship GOF's own wide words. Counts equal, covered windows
-     byte-equal; CUDA-event timings of both, and of K3 and K1F back to
-     back on those words. Then the experiment's entry
-     point (``tpu_vpcc_torch.tools.compaction_experiment``) at batch 2,
-     with the K3 launch counter read around it: its per-variant ms per
-     frame, ``ceiling_ms``, ``floor_ms`` and the decision rule's verdict;
+     byte-equal; K3's times (below) and K1F's device-only time on those
+     words. Then the experiment's entry point
+     (``tpu_vpcc_torch.tools.compaction_experiment``) at batch 2, with
+     the K3 launch counter read around it: its per-variant ms per frame,
+     ``ceiling_ms``, ``floor_ms`` and the decision rule's verdict;
   8. the three probe tools (``tpu_vpcc_torch.tools.hopper_probe*``)
      through their entry points, with the launch counters of P1-P12 read
      around them; then every probe's kernel against its plain version and
-     the probe's numpy ``want``, at the probe's own shape and at about
-     64 MiB per operand, and the CUDA-event times of kernel and plain
-     version at both shapes.
+     the probe's numpy ``want`` at the probe's own shape (single-call
+     times of both), P10 and P11 at ragged widths, single rows and row
+     counts off the row tile (``hopper_probe3.EDGE_SHAPES``), and every
+     probe at about 64 MiB per operand with its times (below).
+
+A kernel's times (``tools.kernel_times.measure``): its device-only time
+(the work the card ran, from a whole ``torch.profiler`` trace of 20
+back-to-back calls), its queued time (the same calls behind a spin
+kernel, CUDA events) and single-call CUDA-event window, the plain
+version's device-only and single-call times, the device-only time of one
+PyTorch call that computes the same function where there is one
+(``library_ms``), the bytes the function must move and the bound they
+give at 3.35 TB/s, and the share of that bound; kernel, library call and
+plain version in turns. The run fails where no whole trace is taken, or
+a device-only time lies below its bound or above its queued time.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come one
 JSON line of per-kernel results and the ``nvidia-smi`` name and power
@@ -86,10 +99,29 @@ K2W_REPLACES = "tpu_vpcc/ops/pallas_kernels.py:38"
 K3_SOURCE = "tpu_vpcc_torch/csrc/cursor_compact.cu"
 K3_REPLACES = "tools/compaction_experiment.py:515"
 PROBES_SOURCE = "tpu_vpcc_torch/csrc/probes.cu"
+#: each probe's Pallas kernel
 PROBE_REPLACES = {
-    "hopper_probe": "tools/pallas_probe.py:55",
-    "hopper_probe2": "tools/pallas_probe2.py:60",
-    "hopper_probe3": "tools/pallas_probe3.py:37",
+    "P1": "tools/pallas_probe.py:51",
+    "P2": "tools/pallas_probe.py:83",
+    "P3": "tools/pallas_probe.py:111",
+    "P4": "tools/pallas_probe.py:172",
+    "P5": "tools/pallas_probe2.py:56",
+    "P6": "tools/pallas_probe2.py:95",
+    "P7": "tools/pallas_probe2.py:119",
+    "P8": "tools/pallas_probe2.py:166",
+    "P9": "tools/pallas_probe3.py:54",
+    "P10": "tools/pallas_probe3.py:63",
+    "P11": "tools/pallas_probe3.py:79",
+    "P12": "tools/pallas_probe3.py:94",
+}
+#: each probe's C entry point in probes.cu
+PROBE_ENTRIES = {
+    "P1": "probe_roll", "P2": "probe_flat_shift", "P3": "probe_interleave",
+    "P4": "probe_dyn_write", "P5": "probe_reinterpret",
+    "P6": "probe_flat_shift", "P7": "probe_roll",
+    "P8": "probe_mini_compact", "P9": "probe_interleave",
+    "P10": "probe_tile_concat", "P11": "probe_reverse_lanes",
+    "P12": "probe_interleave",
 }
 KERNEL_LIBS = ("shift_compact", "wide_words", "cursor_compact", "probes")
 
@@ -101,50 +133,6 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout
-    return out.strip().splitlines()[0]
-
-
-def event_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of ``fn()`` in ms."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def loop_ms(fn, calls: int = 50, warmup: int = 3) -> float:
-    """CUDA-event time of ``calls`` back-to-back ``fn()`` per call, in ms:
-    the card's time when the host keeps ahead of it."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(calls):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / calls
 
 
 def prefix_err(outs_a, outs_b, counts) -> int:
@@ -165,6 +153,7 @@ def phase_build():
     from tpu_vpcc_torch.ops import cursor_compact as k3
     from tpu_vpcc_torch.ops import payload, probes
     from tpu_vpcc_torch.ops import shift_compact as sc
+    from tpu_vpcc_torch.tools.kernel_times import nvidia_smi_line
 
     print(f"device: {torch.cuda.get_device_name(0)}")
     print(f"nvidia-smi: {nvidia_smi_line()}")
@@ -182,7 +171,7 @@ def phase_build():
         for line in _build.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  {name}: {line.strip()}")
-    from tpu_vpcc.video import codec
+    from tpu_vpcc_torch.video import codec
 
     try:
         codec._load()
@@ -288,7 +277,7 @@ def phase_k1f(S_flag: int) -> int:
 
 
 def oracle_frame(sf, frames):
-    from tpu_vpcc.reconstruction.oracle import (
+    from tpu_vpcc_torch.reconstruction.oracle import (
         GeneratePointCloudParams,
         generate_point_cloud,
     )
@@ -349,6 +338,12 @@ def phase_flagship(frame_sets, gofs):
         to_device,
     )
     from tpu_vpcc_torch.runtime import pipeline as P
+    from tpu_vpcc_torch.tools.kernel_times import (
+        event_ms,
+        measure,
+        measured_line,
+        nvidia_smi_line,
+    )
 
     dev = torch.device("cuda")
 
@@ -411,16 +406,21 @@ def phase_flagship(frame_sets, gofs):
     k1_err = prefix_err(k1_ops, ref_ops, ref_counts.tolist())
     check(k1_err == 0, f"K1 differs from plain at the flagship ({k1_err})")
 
+    # K1 must read the validity once and each valid slot's operands, and
+    # write those operands and the counts
+    per_slot = sum(t.element_size() for t in (w0, zs, wc) if t is not None)
+    n_valid = int(ref_counts.sum())
+    k1_bytes = valid.numel() + 2 * n_valid * per_slot + 4 * valid.shape[0]
+    k1 = measure(lambda: sc._shift_compact_cuda(w0, zs, wc, valid),
+                 lambda: sc.shift_compact_ops_reference(w0, zs, wc, valid),
+                 nbytes=k1_bytes)
     runs = {
-        "plain": lambda: sc.shift_compact_ops_reference(w0, zs, wc, valid),
-        "k1": lambda: sc._shift_compact_cuda(w0, zs, wc, valid),
         "words": words,
         "dispatch": lambda: reconstruct_batch_pretiled_packed(fields, cat, di.cfg),
     }
     ms = {name: [] for name in runs}
-    for pair in (("plain", "k1"), ("words", "dispatch")):
-        for name in pair + pair[::-1]:  # in turns
-            ms[name].append(event_ms(runs[name]))
+    for name in ("words", "dispatch", "dispatch", "words"):  # in turns
+        ms[name].append(event_ms(runs[name]))
     ms_words = statistics.median(ms["words"])
     ms_dispatch = statistics.median(ms["dispatch"])
     ops, counts_t = reconstruct_batch_pretiled_packed(fields, cat, di.cfg)
@@ -428,7 +428,7 @@ def phase_flagship(frame_sets, gofs):
     ms_fetch = event_ms(
         lambda: P._fetch_prefixes_packed(ops, counts, color_mode="yuv10"))
 
-    from tpu_vpcc.utils.stats import GofStats
+    from tpu_vpcc_torch.utils.stats import GofStats
 
     list(P._reconstruct_gof_device(gof, dev))  # warm
     reps = 5
@@ -453,11 +453,11 @@ def phase_flagship(frame_sets, gofs):
               f"pipeline_gofs={d}: runs {[round(s, 4) for s in v]} s, "
               f"{n_dec / statistics.median(v):.1f} frames/s"
               for d, v in dec_s.items()))
-    k1_ms = statistics.median(ms["k1"])
-    plain_ms = statistics.median(ms["plain"])
-    print(f"timings (median CUDA events, {nvidia_smi_line()}): "
-          f"K1 {k1_ms:.4f} ms vs plain {plain_ms:.4f} ms "
-          f"(runs k1 {ms['k1']}, plain {ms['plain']}); gather+words "
+    smi = nvidia_smi_line()
+    print(measured_line(f"K1 at the flagship dispatch shape, "
+                        f"{launches / len(gofs):g} launches per two-frame "
+                        f"GOF", k1, smi))
+    print(f"timings (median CUDA events, {smi}): gather+words "
           f"{ms_words:.4f} ms (runs {ms['words']}); whole dispatch "
           f"{ms_dispatch:.4f} ms (runs {ms['dispatch']}); "
           f"fetch {ms_fetch:.4f} ms; host staging {stage_s * 1e3:.1f} ms")
@@ -471,16 +471,9 @@ def phase_flagship(frame_sets, gofs):
     ))
     print(f"peak device memory over the script: "
           f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
-    return {
-        "name": "shift_compact",
-        "route": "cuda",
-        "source": K1_SOURCE,
-        "replaces": K1_REPLACES,
-        "launches": launches,
-        "max_abs_err": k1_err,
-        "ms": k1_ms,
-        "plain_ms": plain_ms,
-    }, out
+    return dict(k1, name="shift_compact", route="cuda", source=K1_SOURCE,
+                replaces=K1_REPLACES, launches=launches,
+                max_abs_err=k1_err), out
 
 
 def words_err(a, b) -> int:
@@ -497,7 +490,7 @@ def phase_k2w(gof):
 
     import torch
 
-    from tpu_vpcc.atlas import groups as G
+    from tpu_vpcc_torch.atlas import groups as G
     from tpu_vpcc_torch.ops import payload
     from tpu_vpcc_torch.ops.tiled import to_device
     from tpu_vpcc_torch.runtime import pipeline as P
@@ -545,7 +538,7 @@ def phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err):
     import numpy as np
     import torch
 
-    from tpu_vpcc.runtime.pipeline import _reconstruct_gof_oracle
+    from tpu_vpcc_torch.atlas import groups as G
     from tpu_vpcc_torch.models.flagship import (
         ATTR_SMOOTHING,
         GEO_SMOOTHING,
@@ -560,6 +553,13 @@ def phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err):
         to_device,
     )
     from tpu_vpcc_torch.runtime import pipeline as P
+    from tpu_vpcc_torch.runtime.host import _reconstruct_gof_oracle
+    from tpu_vpcc_torch.tools.kernel_times import (
+        event_ms,
+        measure,
+        measured_line,
+        nvidia_smi_line,
+    )
 
     dev = torch.device("cuda")
     smooth = dict(geo_smoothing=GEO_SMOOTHING, attr_smoothing=ATTR_SMOOTHING)
@@ -645,30 +645,45 @@ def phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err):
     S = valid.shape[1]
     print(f"wide dispatch shape: F={valid.shape[0]} groups={g_bucket} S={S}, "
           f"{int(valid.sum())} valid slots")
+    # K2W reads the fields and each live group's cat row once and writes
+    # three words and the validity of every slot; K1F must read the
+    # validity once and each valid slot's three words, and write those
+    # words and the counts
+    F = valid.shape[0]
+    n_live = int((fields[:, :, G.G_VALID] > 0).sum())
+    k2w_bytes = fields.numel() * 4 + n_live * cat.shape[2] * 4 \
+        + valid.numel() * 13
+    k1f_bytes = valid.numel() + 2 * int(n_ref.sum()) * 12 + 4 * F
+    k2w = measure(lambda: payload._wide_words_cuda(fields, cat, di.cfg),
+                  lambda: payload.wide_words_reference(fields, cat, di.cfg),
+                  nbytes=k2w_bytes)
+    k1f = measure(lambda: sc._shift_compact_full_cuda(sw, valid),
+                  lambda: sc.shift_compact_full_reference(sw, valid),
+                  nbytes=k1f_bytes)
     runs = {
-        "k2w": lambda: payload._wide_words_cuda(fields, cat, di.cfg),
-        "k2w_plain": lambda: payload.wide_words_reference(fields, cat, di.cfg),
-        "k1f": lambda: sc._shift_compact_full_cuda(sw, valid),
-        "k1f_plain": lambda: sc.shift_compact_full_reference(sw, valid),
         "smoothing": lambda: smooth_words(fields, w0, w1, w2, valid, di.cfg),
         "dispatch": lambda: reconstruct_batch_pretiled(fields, cat, di.cfg),
     }
     ms = {name: [] for name in runs}
-    for pair in (("k2w_plain", "k2w"), ("k1f_plain", "k1f"),
-                 ("smoothing", "dispatch")):
-        for name in pair + pair[::-1]:  # in turns
-            ms[name].append(event_ms(runs[name], reps=10))
+    for name in ("smoothing", "dispatch", "dispatch", "smoothing"):
+        ms[name].append(event_ms(runs[name], reps=10))
     med = {name: statistics.median(v) for name, v in ms.items()}
     ops, counts_t = reconstruct_batch_pretiled(fields, cat, di.cfg)
     counts = counts_t.cpu().numpy()
     ms_fetch = event_ms(lambda: P._fetch_prefixes_packed(
         ops, counts, color_mode="yuv10", layout="wide"), reps=10)
     smi = nvidia_smi_line()
+    per_gof = {name: n / len(wide_gofs) for name, n in
+               (("K2W", k2w_launches), ("K1F", k1f_launches))}
+    for name, m in (("K2W", k2w), ("K1F", k1f)):
+        print(measured_line(f"{name} at the smoothing GOF's dispatch shape, "
+                            f"{per_gof[name]:g} launches per two-frame GOF",
+                            m, smi))
     print(f"wide timings (median CUDA events, {smi}): " + "; ".join(
         f"{name} {med[name]:.4f} ms (runs {ms[name]})" for name in runs)
         + f"; fetch {ms_fetch:.4f} ms; host staging {stage_s * 1e3:.1f} ms")
 
-    from tpu_vpcc.utils.stats import GofStats
+    from tpu_vpcc_torch.utils.stats import GofStats
 
     reps = 3
     stages = GofStats()
@@ -693,31 +708,17 @@ def phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err):
     print(f"peak device memory over the script: "
           f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
     return [
-        {
-            "name": "shift_compact_full",
-            "route": "cuda",
-            "source": K1_SOURCE,
-            "replaces": K1F_REPLACES,
-            "launches": k1f_launches,
-            "max_abs_err": k1f_err,
-            "ms": med["k1f"],
-            "plain_ms": med["k1f_plain"],
-        },
-        {
-            "name": "wide_words",
-            "route": "cuda",
-            "source": K2W_SOURCE,
-            "replaces": K2W_REPLACES,
-            "launches": k2w_launches,
-            "max_abs_err": k2w_err,
-            "ms": med["k2w"],
-            "plain_ms": med["k2w_plain"],
-        },
+        dict(k1f, name="shift_compact_full", route="cuda", source=K1_SOURCE,
+             replaces=K1F_REPLACES, launches=k1f_launches,
+             max_abs_err=k1f_err),
+        dict(k2w, name="wide_words", route="cuda", source=K2W_SOURCE,
+             replaces=K2W_REPLACES, launches=k2w_launches,
+             max_abs_err=k2w_err),
     ]
 
 
 def phase_stream():
-    from tpu_vpcc.utils.ply import format_ply
+    from tpu_vpcc_torch.utils.ply import format_ply
     from tpu_vpcc_torch.ops import shift_compact as sc
     from tpu_vpcc_torch.runtime.pipeline import Decoder, Params
 
@@ -758,6 +759,12 @@ def phase_cursor(gof, S_flag: int):
     from tpu_vpcc_torch.ops.tiled import to_device
     from tpu_vpcc_torch.runtime import pipeline as P
     from tpu_vpcc_torch.tools import compaction_experiment as E
+    from tpu_vpcc_torch.tools.kernel_times import (
+        device_ms,
+        measure,
+        measured_line,
+        nvidia_smi_line,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -805,30 +812,21 @@ def phase_cursor(gof, S_flag: int):
           f"S={valid.shape[1]}, {nc} chunks, {writers} last writers, count "
           f"{int(got[3])} equal, covered windows equal")
     print(f"phase 7: {n_cases + 1} K3 cases byte-equal to the plain version")
-    runs = {
-        "k3": lambda: k3._cursor_compact_cuda(w0, w1, w2, valid),
-        "k3_plain": lambda: k3.cursor_compact_reference(w0, w1, w2, valid),
-    }
-    ms = {name: [] for name in runs}
-    for name in ("k3_plain", "k3", "k3", "k3_plain"):  # in turns
-        ms[name].append(event_ms(runs[name]))
-    med = {name: statistics.median(v) for name, v in ms.items()}
+    # K3 must read the validity once, and the three words of each
+    # element its covered windows end with, write those words, and the
+    # count
+    k3_bytes = valid.numel() + k3.covered_elements(valid) * 12 * 2 + 4
+    m = measure(lambda: k3._cursor_compact_cuda(w0, w1, w2, valid),
+                lambda: k3.cursor_compact_reference(w0, w1, w2, valid),
+                nbytes=k3_bytes)
     smi = nvidia_smi_line()
-    print(f"K3 timings (median CUDA events, {smi}): K3 {med['k3']:.4f} ms "
-          f"(runs {ms['k3']}) vs plain {med['k3_plain']:.4f} ms (runs "
-          f"{ms['k3_plain']}), two flagship frames")
-    # a single call's event window also holds the host's enqueue; back to
-    # back, the card's own time per call (K3 against K1F on the same words)
+    print(measured_line("K3 on the first flagship GOF's wide words, two "
+                        "frames", m, smi))
     from tpu_vpcc_torch.ops import shift_compact as sc
 
-    b2b = {
-        "k3": loop_ms(runs["k3"]),
-        "k1f": loop_ms(lambda: sc._shift_compact_full_cuda((w0, w1, w2),
-                                                           valid)),
-    }
-    print(f"back to back (CUDA events over 50 calls, {smi}): K3 "
-          f"{b2b['k3']:.4f} ms, K1F {b2b['k1f']:.4f} ms per call, two "
-          f"flagship frames")
+    k1f_ms = device_ms(
+        lambda: sc._shift_compact_full_cuda((w0, w1, w2), valid))
+    print(f"K1F on the same words ({smi}): device-only {k1f_ms:.4f} ms")
 
     # the experiment's entry point, counted
     torch.cuda.synchronize()
@@ -841,73 +839,40 @@ def phase_cursor(gof, S_flag: int):
     check(launches > 0, "the compaction experiment launched K3 no time")
     print(f"compaction experiment: batch 2 in {time.perf_counter() - t0:.2f} "
           f"s, K3 launches {launches} ({smi})")
-    return {
-        "name": "cursor_compact",
-        "route": "cuda",
-        "source": K3_SOURCE,
-        "replaces": K3_REPLACES,
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": med["k3"],
-        "plain_ms": med["k3_plain"],
-        "card": smi,
-    }
-
-
-def _probe_big_shapes():
-    """Per probe, its module's function at about 64 MiB per operand."""
-    import numpy as np
-
-    from tpu_vpcc_torch.tools import hopper_probe as H1
-    from tpu_vpcc_torch.tools import hopper_probe2 as H2
-    from tpu_vpcc_torch.tools import hopper_probe3 as H3
-
-    steps = np.random.default_rng(4).integers(0, 513, 255)
-    offs = np.concatenate([[0], np.cumsum(steps)])  # overlapping, in order
-    return {
-        "P1": lambda d, run: H1.probe_rolls(d, run, R=131072),
-        "P2": lambda d, run: H1.probe_flat_shift(d, run, R=131072,
-                                                 ks=(1, 1024)),
-        "P3": lambda d, run: H1.probe_interleave(d, run, R=131072)[:1],
-        "P4": lambda d, run: H1.probe_dyn_dma(d, run, nstep=256,
-                                              step_rows=512, offs=offs),
-        "P5": lambda d, run: H2.probe_bitcast(d, run, R=32768),
-        "P6": lambda d, run: H2.probe_wide_u16(d, run, R=32768,
-                                               ks=(1, 4096)),
-        "P7": lambda d, run: H2.probe_dynamic_roll(d, run, R=65536),
-        "P8": lambda d, run: H2.probe_mini_compact(d, run, n_seg=8192),
-        "P9": lambda d, run: H3.probe_interleave(d, run, R=32768),
-        "P10": lambda d, run: H3.probe_repeat(d, run, R=32768),
-        "P11": lambda d, run: H3.probe_rev(d, run, R=32768),
-        "P12": lambda d, run: H3.probe_interleave16(d, run, R=65536),
-    }
+    return dict(m, name="cursor_compact", route="cuda", source=K3_SOURCE,
+                replaces=K3_REPLACES, launches=launches, max_abs_err=err,
+                card=smi)
 
 
 def _probe_check(cases_k, cases_p, where):
     """Kernel cases against the plain cases and both against ``want``."""
-    import numpy as np
+    from tpu_vpcc_torch.tools.kernel_times import mismatches
 
-    for k, p in zip(cases_k, cases_p):
-        same = k.got.shape == p.got.shape and np.array_equal(k.got, p.got)
-        check(same, f"{k.name} ({where}): kernel differs from plain")
-        for c, who in ((k, "kernel"), (p, "plain")):
-            check(c.got.shape == c.want.shape
-                  and np.array_equal(c.got, c.want),
-                  f"{c.name} ({where}): {who} differs from want")
+    bad = mismatches(cases_k, cases_p, where)
+    check(not bad, "; ".join(bad))
+    for k in cases_k:
         print(f"{k.name} ({where}): kernel OK, plain OK, equal")
 
 
 def phase_probes():
     """The three probe tools through their entry points, counted; every
-    probe against its plain version and its ``want`` at the probe's shape
-    and at about 64 MiB per operand; the times of both. Returns the three
-    libraries' kernels entries."""
+    probe against its plain version and its ``want`` at the probe's shape,
+    P10 and P11 at their edge shapes, and every probe at about 64 MiB per
+    operand with its device-only times. Returns the probes' kernels
+    entries."""
     import torch
 
     from tpu_vpcc_torch.ops import probes
     from tpu_vpcc_torch.tools import hopper_probe as H1
     from tpu_vpcc_torch.tools import hopper_probe2 as H2
     from tpu_vpcc_torch.tools import hopper_probe3 as H3
+    from tpu_vpcc_torch.tools.kernel_times import (
+        NO_LIBRARY,
+        event_ms,
+        measured_line,
+        nvidia_smi_line,
+        time_probe,
+    )
 
     tools = {"hopper_probe": H1, "hopper_probe2": H2, "hopper_probe3": H3}
     torch.cuda.synchronize()
@@ -922,46 +887,44 @@ def phase_probes():
     print(f"probe tools: launches per probe {launches}")
 
     dev = torch.device("cuda")
-    big = _probe_big_shapes()
-    small = [fn for mod in tools.values() for fn in mod.PROBE_FUNCTIONS]
-    timed = {}  # probe -> {shape: (kernel ms, plain ms)}
-    for where, fns in (("probe shape", small), ("64 MiB", big.values())):
-        for fn in fns:
-            cases_k = fn(dev, probes.call)
-            cases_p = fn(dev, probes.plain)
-            torch.cuda.synchronize()
-            _probe_check(cases_k, cases_p, where)
-            c = cases_k[0]
-            t = timed.setdefault(c.probe, {})
-            if where in t:
-                continue
-            ms = {"kernel": [], "plain": []}
-            runs = {"kernel": lambda c=c: probes.call(c.probe, *c.args),
-                    "plain": lambda c=c: probes.plain(c.probe, *c.args)}
-            for who in ("plain", "kernel", "kernel", "plain"):  # in turns
-                ms[who].append(event_ms(runs[who], reps=10))
-            t[where] = (statistics.median(ms["kernel"]),
-                        statistics.median(ms["plain"]))
     smi = nvidia_smi_line()
+    small = {}  # probe -> (kernel ms, plain ms), single calls
+    for fn in (fn for mod in tools.values() for fn in mod.PROBE_FUNCTIONS):
+        cases_k = fn(dev, probes.call)
+        cases_p = fn(dev, probes.plain)
+        torch.cuda.synchronize()
+        _probe_check(cases_k, cases_p, "probe shape")
+        c = cases_k[0]
+        small[c.probe] = tuple(
+            event_ms(lambda run=run, c=c: run(c.probe, *c.args), reps=10)
+            for run in (probes.call, probes.plain))
+    for R, L in H3.EDGE_SHAPES:
+        for fn in (H3.probe_repeat, H3.probe_rev):
+            cases_k = fn(dev, probes.call, R=R, L=L)
+            cases_p = fn(dev, probes.plain, R=R, L=L)
+            torch.cuda.synchronize()
+            _probe_check(cases_k, cases_p, f"R={R} L={L}")
+    big = {}
     for probe in probes.PROBES:
-        print(f"{probe} timings (median CUDA events, {smi}): " + "; ".join(
-            f"{where}: kernel {k:.4f} ms vs plain {p:.4f} ms"
-            for where, (k, p) in timed[probe].items()))
-    print(f"phase 8: every probe OK against its plain version and want")
-    entries = []
-    for lib, members in probes.LIBRARIES.items():
-        entries.append({
-            "name": lib,
-            "route": "cuda",
-            "source": PROBES_SOURCE,
-            "replaces": PROBE_REPLACES[lib],
-            "launches": sum(launches[p] for p in members),
-            "max_abs_err": 0,  # every case was checked byte-equal
-            "ms": sum(timed[p]["64 MiB"][0] for p in members),
-            "plain_ms": sum(timed[p]["64 MiB"][1] for p in members),
-            "card": smi,
-        })
-    return entries
+        try:
+            big[probe] = time_probe(probe, dev)
+        except AssertionError as e:
+            raise SmokeFailure(str(e)) from None
+        print(f"{probe} (64 MiB): kernel OK, plain OK, equal")
+    for probe in probes.PROBES:
+        k, p = small[probe]
+        print(f"{probe} at the probe's shape ({smi}): single call kernel "
+              f"{k:.4f} ms vs plain {p:.4f} ms")
+        print(measured_line(f"{probe} at 64 MiB per operand", big[probe], smi))
+        if probe in NO_LIBRARY:
+            print(f"  {probe} library call: {NO_LIBRARY[probe]}")
+    print("phase 8: every probe OK against its plain version and want")
+    return [
+        dict(big[p], name=f"{p} {PROBE_ENTRIES[p]}", route="cuda",
+             source=PROBES_SOURCE, replaces=PROBE_REPLACES[p],
+             launches=launches[p], max_abs_err=0, card=smi)
+        for p in probes.PROBES
+    ]
 
 
 def main() -> int:
@@ -979,6 +942,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    from tpu_vpcc_torch.tools.kernel_times import TimingError
+
     try:
         bridge = phase_build()
         fcfg, frame_sets, gofs, S_flag = flagship_inputs()
@@ -993,14 +958,18 @@ def main() -> int:
             print("stream phase: not run: the host video bridge cannot load "
                   "on this machine (phase 1)")
         k3 = phase_cursor(gofs[0], S_flag)
-        probe_libs = phase_probes()
-        check("jax" not in sys.modules, "jax was imported")
-    except SmokeFailure as e:
+        probe_kernels = phase_probes()
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in
+                        ("jax", "jaxlib", "tpu_vpcc"))
+        check(not loaded, f"jax or the JAX package was imported: {loaded}")
+    except (SmokeFailure, TimingError) as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
+    from tpu_vpcc_torch.tools.kernel_times import nvidia_smi_line
+
     smi = nvidia_smi_line()
     kernels = [dict(k, card=k.get("card", smi))
-               for k in [k1] + wide + [k3] + probe_libs]
+               for k in [k1] + wide + [k3] + probe_kernels]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

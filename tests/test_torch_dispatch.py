@@ -149,7 +149,7 @@ def test_flagship_inputs_match_reference():
 
 def test_inputs_from_reference_rejects_unported_layouts():
     from tpu_vpcc.ops.reconstruct import make_config as ref_make_config
-    from tpu_vpcc.v3c.syntax import UnsupportedFeature
+    from tpu_vpcc_torch.v3c.syntax import UnsupportedFeature
 
     cfg = ref_make_config(W, H, RES, PREC)
     fields = np.zeros((1, 4, 21), np.int32)

@@ -21,16 +21,27 @@ from tpu_vpcc.runtime.pipeline import Params as RefParams
 from tpu_vpcc.utils.fixtures import build_fixture_stream
 from tpu_vpcc.utils.ply import format_ply
 from tpu_vpcc.utils.synthetic import make_synthetic_frame, plant_raw_patch
-from tpu_vpcc.v3c.syntax import PatchOrientation, UnsupportedFeature
+from tpu_vpcc.v3c.syntax import PatchOrientation
 from tpu_vpcc.video import encoder_supports
 from tpu_vpcc_torch.runtime import cli as port_cli
 from tpu_vpcc_torch.runtime.pipeline import Decoder, Params
+from tpu_vpcc_torch.v3c.syntax import UnsupportedFeature
 
 ROOT = Path(__file__).resolve().parent.parent
 VERIFY_STREAM = ROOT / "tests" / "data" / "verify_64x64_2f.bin"
 
+
+def _encoder_available() -> bool:
+    """Whether libx265 encodes 8- and 10-bit here: not where the native
+    bridge cannot build (a machine without libavcodec)."""
+    try:
+        return encoder_supports(8) and encoder_supports(10)
+    except (subprocess.CalledProcessError, OSError):
+        return False
+
+
 needs_encoder = pytest.mark.skipif(
-    not (encoder_supports(8) and encoder_supports(10)),
+    not _encoder_available(),
     reason="libx265 lossless 8/10-bit required to author fixtures",
 )
 
@@ -204,7 +215,7 @@ def test_stream_matches_reference_and_oracle(name):
 def test_cli_matches_reference_cli_and_stays_jax_free(tmp_path):
     """``python -m tpu_vpcc_torch.runtime.cli --device cpu`` writes the
     same files as ``python -m tpu_vpcc.runtime.cli``; the port's process
-    never imports jax."""
+    never imports jax or tpu_vpcc."""
     out_port = tmp_path / "port"
     out_ref = tmp_path / "ref"
     script = f"""
@@ -220,7 +231,8 @@ try:
     runpy.run_module("tpu_vpcc_torch.runtime.cli", run_name="__main__")
 except SystemExit as e:
     assert e.code == 0, e.code
-mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+mods = sorted(m for m in sys.modules
+              if m.startswith("jax") or m.split(".")[0] == "tpu_vpcc")
 assert not mods, mods
 print("JAX_FREE")
 """
@@ -243,7 +255,8 @@ print("JAX_FREE")
 def test_smoothing_cli_matches_reference_cli_and_stays_jax_free(tmp_path):
     """``--apply-geo-smoothing --apply-attr-smoothing``: the port's CLI
     (on the wide path) writes the same files as tpu_vpcc's CLI, and a
-    smoothing decode through the CLI and ``Decoder`` never imports jax."""
+    smoothing decode through the CLI and ``Decoder`` never imports jax or
+    tpu_vpcc."""
     stream = tmp_path / "smoothing.bin"
     stream.write_bytes(_stream_smoothing())
     flags = ["--apply-geo-smoothing", "--apply-attr-smoothing"]
@@ -263,7 +276,8 @@ try:
     runpy.run_module("tpu_vpcc_torch.runtime.cli", run_name="__main__")
 except SystemExit as e:
     assert e.code == 0, e.code
-mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+mods = sorted(m for m in sys.modules
+              if m.startswith("jax") or m.split(".")[0] == "tpu_vpcc")
 assert not mods, mods
 print("JAX_FREE")
 """

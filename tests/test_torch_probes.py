@@ -32,6 +32,7 @@ from tpu_vpcc_torch.ops import probes
 from tpu_vpcc_torch.tools import hopper_probe as H1
 from tpu_vpcc_torch.tools import hopper_probe2 as H2
 from tpu_vpcc_torch.tools import hopper_probe3 as H3
+from tpu_vpcc_torch.tools import kernel_times as KT
 
 ROOT = Path(__file__).resolve().parent.parent
 _REFERENCE = {}
@@ -195,6 +196,52 @@ def test_cpu_call_is_plain_and_uncounted():
         probes.call("P13", x)
 
 
+@pytest.mark.parametrize("shape", H3.EDGE_SHAPES,
+                         ids=[f"R{r}-L{n}" for r, n in H3.EDGE_SHAPES])
+def test_p10_p11_edge_shapes(shape):
+    R, L = shape
+    for fn in (H3.probe_repeat, H3.probe_rev):
+        c = fn("cpu", R=R, L=L)[0]
+        assert c.got.shape == c.want.shape
+        np.testing.assert_array_equal(c.got, c.want)
+
+
+def _first_case(probe):
+    """The first case of ``probe`` at its own shape, on the CPU."""
+    return next(c for mod in (H1, H2, H3) for fn in mod.PROBE_FUNCTIONS
+                for c in _port_cases(fn).values() if c.probe == probe)
+
+
+@pytest.mark.parametrize("probe", probes.PROBES)
+def test_library_call_computes_the_probe(probe):
+    """``kernel_times.library_call``, the one PyTorch call timed beside a
+    probe's kernel, computes what the plain version computes; P4 and P8
+    have none, and say why."""
+    c = _first_case(probe)
+    lib = KT.library_call(c)
+    if probe in KT.NO_LIBRARY:
+        assert lib is None
+        return
+    want = probes.plain(c.probe, *c.args)
+    got = lib()
+    assert torch.equal(got.reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("probe", probes.PROBES)
+def test_probe_bytes(probe):
+    """Each input byte read once, each output byte written once, at every
+    probe's 64 MiB shape's arithmetic (checked here at the probe's own)."""
+    c = _first_case(probe)
+    out = probes.plain(c.probe, *c.args)
+    n_out = out.numel() * out.element_size()
+    ins = [a for a in c.args if isinstance(a, torch.Tensor)]
+    n_in = sum(a.numel() * a.element_size() for a in ins)
+    if probe == "P4":  # offsets [0, 1, 3, 4], 2-row steps: rows 0-5 read
+        x, offs, out_rows = c.args
+        n_in = offs.numel() * 4 + 6 * x.shape[2] * 4
+    assert KT.probe_bytes(c) == n_in + n_out
+
+
 def test_p4_last_step_wins_out_of_order():
     """Offsets that are not in order still apply in step order."""
     x = torch.arange(3 * 2 * 4, dtype=torch.int32).reshape(3, 2, 4)
@@ -215,7 +262,8 @@ def test_p8_segments_compact_independently():
 
 def test_tools_run_on_cpu_and_stay_jax_free():
     """The four tool entry points with ``--device cpu`` (the experiment at
-    256²): exit 0, the report and JSON lines, and no jax in the process."""
+    256²): exit 0, the report and JSON lines, and no jax or tpu_vpcc in the
+    process."""
     script = """
 import runpy, sys
 for argv in (["hopper_probe", "--device", "cpu"],
@@ -229,7 +277,8 @@ for argv in (["hopper_probe", "--device", "cpu"],
                          run_name="__main__")
     except SystemExit as e:
         assert e.code == 0, (argv, e.code)
-mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+mods = sorted(m for m in sys.modules
+              if m.startswith("jax") or m.split(".")[0] == "tpu_vpcc")
 assert not mods, mods
 print("JAX_FREE")
 """
@@ -282,3 +331,67 @@ def test_kernels_match_plain_on_card(tool):
     for k, p in zip(kernel, plain):
         np.testing.assert_array_equal(k.got, k.want)
         np.testing.assert_array_equal(k.got, p.got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", H3.EDGE_SHAPES,
+                         ids=[f"R{r}-L{n}" for r, n in H3.EDGE_SHAPES])
+def test_p10_p11_edge_shapes_on_card(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (on the card: pytest -m cuda)")
+    R, L = shape
+    for fn, probe in ((H3.probe_repeat, "P10"), (H3.probe_rev, "P11")):
+        before = probes.launches[probe]
+        k = fn("cuda", R=R, L=L)[0]
+        torch.cuda.synchronize()
+        assert probes.launches[probe] == before + 1
+        p = fn("cuda", probes.plain, R=R, L=L)[0]
+        np.testing.assert_array_equal(k.got, k.want)
+        np.testing.assert_array_equal(k.got, p.got)
+
+
+_SPIN = {"spin": [500.0, 500.0]}
+_ONE = {"spin": [500.0, 500.0], "scan": [2.0], "memset": [1.0]}
+
+
+def _many(calls, scan=None, memset=None, spin=2, extra=None):
+    d = {"spin": [500.0] * spin,
+         "scan": [2.0] * (calls if scan is None else scan),
+         "memset": [1.0] * (calls if memset is None else memset)}
+    d.update(extra or {})
+    return {n: v for n, v in d.items() if v}
+
+
+@pytest.mark.parametrize("spin", [2, 1, 0], ids=["spins", "one-spin-lost",
+                                                  "spins-lost"])
+def test_whole_trace_time_leaves_out_the_spins(spin):
+    """A whole trace gives the calls' own device time per call, whether
+    or not the spins around the calls survived in it."""
+    assert KT.whole_trace_ms(_SPIN, _ONE, _many(20, spin=spin), 20) \
+        == 3.0 / 1e3
+
+
+@pytest.mark.parametrize("many", [
+    _many(20, scan=19),                  # one launch lost
+    _many(20, memset=0),                 # every launch of one name lost
+    _many(20, scan=0, memset=0),         # all of the calls' work lost
+    _many(20, spin=1, scan=17, memset=17),  # the first calls lost
+    _many(20, extra={"other": [4.0]}),   # work that is not the calls'
+    _many(20, scan=40),                  # twice as many of one name
+], ids=["one-lost", "name-lost", "all-lost", "start-lost", "extra",
+        "doubled"])
+def test_trace_that_is_not_whole_raises(many):
+    """``kernel_times`` takes a device-only time only from a whole trace:
+    each name of one call's trace, exactly as many times as the calls."""
+    with pytest.raises(KT.TimingError):
+        KT.whole_trace_ms(_SPIN, _ONE, many, 20)
+
+
+@pytest.mark.parametrize("spins,one", [
+    ({}, _ONE),                          # the spins' trace lost its work
+    (_SPIN, dict(_SPIN)),                # one call put nothing on the card
+    (_SPIN, {"spin": [500.0], "scan": [2.0]}),  # one call lost a name
+], ids=["no-spins", "no-work", "one-call-lost-a-name"])
+def test_reference_traces_must_be_whole(spins, one):
+    with pytest.raises(KT.TimingError):
+        KT.whole_trace_ms(spins, one, _many(20), 20)

@@ -1,9 +1,10 @@
 """tpu_vpcc_torch — the tpu_vpcc V-PCC (MPEG V3C) decoder on PyTorch.
 
-The port of ``tpu_vpcc`` to PyTorch and CUDA: the same host layers
-(V3C parse, HEVC decode, group tables; shared with ``tpu_vpcc``), with
-the reconstruction on a torch device and the TPU's Pallas kernels
-rewritten by hand for NVIDIA Hopper (``csrc/``). It never imports jax.
+The port of ``tpu_vpcc`` to PyTorch and CUDA: its own copies of the
+host layers (V3C parse, HEVC decode, group tables, the numpy oracle),
+with the reconstruction on a torch device and the TPU's Pallas kernels
+rewritten by hand for NVIDIA Hopper (``csrc/``). It imports neither jax
+nor ``tpu_vpcc``.
 
     from tpu_vpcc_torch import Decoder, Params
     decoder = Decoder(Params("stream.bin", device="cuda"))
@@ -17,7 +18,7 @@ __version__ = "0.1.0"
 _LAZY = {
     "Decoder": ("tpu_vpcc_torch.runtime.pipeline", "Decoder"),
     "Params": ("tpu_vpcc_torch.runtime.pipeline", "Params"),
-    "PointSet3": ("tpu_vpcc.reconstruction.pointset", "PointSet3"),
+    "PointSet3": ("tpu_vpcc_torch.reconstruction.pointset", "PointSet3"),
 }
 
 

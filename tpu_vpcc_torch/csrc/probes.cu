@@ -26,11 +26,25 @@
 //            tools/pallas_probe2.py on u16 streams held in shared memory,
 //            one block per segment of up to 4,096 slots (probe_mini_compact).
 //   P10      tile-concat out[r, c] = a[r, c mod L], which is what
-//            pltpu.repeat(x, 2, axis=1) computes (probe_tile_concat).
-//   P11      lane reversal (probe_reverse_lanes).
+//            pltpu.repeat(x, 2, axis=1) computes (tools/pallas_probe3.py:63;
+//            probe_tile_concat).
+//   P11      lane reversal, lax.rev (tools/pallas_probe3.py:79;
+//            probe_reverse_lanes).
 //
 // Bound: memory bytes, all of them (no arithmetic to speak of); at the
 // probes' own shapes (a few KB) every launch is bound by its latency.
+//
+// P10 and P11 at about 64 MiB per operand: P11 must read 64 MiB and
+// write 64 MiB (0.040 ms at 3.35 TB/s), P10 read 64 MiB once and write
+// 128 MiB (0.060 ms; torch.cat([a, a], 1) reads a twice). One int32
+// per thread behind 64-bit divisions (emulated, dozens of instructions
+// each) falls well short of that. Here a 2-D grid gives each thread its
+// column (blockIdx.x) and rows (blockIdx.y), so nothing is divided; a
+// thread moves 16-byte vectors through read-only loads and
+// streaming stores, four rows in flight; P11 reverses a vector's lanes in
+// registers and P10 stores each vector it reads twice; the grid covers
+// every row tile, so all 132 SMs fill. Widths that are not a multiple of
+// four take the scalar path of the same kernels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -234,30 +248,122 @@ mini_compact_kernel(const uint16_t* __restrict__ lo_in,
   }
 }
 
+// P10 and P11: one thread per column of a row (a 16-byte vector of four
+// int32 where rows allow it, else one element), kRowsInFlight rows apart
+// per thread, so the row and column come from the launch and no index
+// is divided. The vector path needs L % 4 == 0 (every row then starts on
+// 16 bytes, the base being 16-byte aligned); other widths take the
+// scalar path of the same kernel.
+constexpr int kRowsInFlight = 4;
+
+struct RowTiles {
+  dim3 grid, block;
+};
+
+// Threads along the columns (a power of two up to 128), the rest of the
+// block's 256 threads along the rows; blocks along x cover the columns,
+// along y the row tiles, with no cap short of the grid's own limit.
+RowTiles row_tiles(int64_t R, int64_t cols) {
+  unsigned tx = 1;
+  while (tx < 128 && tx < cols) tx *= 2;
+  const unsigned ty = kThreads / tx;
+  const int64_t rows_per_block = static_cast<int64_t>(ty) * kRowsInFlight;
+  int64_t gy = (R + rows_per_block - 1) / rows_per_block;
+  if (gy > 65535) gy = 65535;  // the y-stride loop takes the rest
+  return {dim3(static_cast<unsigned>((cols + tx - 1) / tx),
+               static_cast<unsigned>(gy)),
+          dim3(tx, ty)};
+}
+
+// P11: out[r, c] = a[r, L - 1 - c]. Vector path: output vector j of a
+// row is input vector L/4 - 1 - j with its four lanes reversed.
 __global__ void __launch_bounds__(kThreads)
-tile_concat_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out,
-                   int64_t R, int64_t L) {
-  const int64_t n = R * 2 * L;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       e < n; e += stride) {
-    const int64_t r = e / (2 * L);
-    int64_t c = e - r * 2 * L;
-    if (c >= L) c -= L;
-    out[e] = a[r * L + c];
+reverse_lanes_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out,
+                     int64_t R, int L, bool vec) {
+  const int cols = vec ? L / 4 : L;
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= cols) return;
+  const int64_t step = static_cast<int64_t>(blockDim.y);
+  for (int64_t r0 = static_cast<int64_t>(blockIdx.y) * step * kRowsInFlight +
+                    threadIdx.y;
+       r0 < R; r0 += static_cast<int64_t>(gridDim.y) * step * kRowsInFlight) {
+    if (vec) {
+      const int4* src = reinterpret_cast<const int4*>(a);
+      int4* dst = reinterpret_cast<int4*>(out);
+      int4 v[kRowsInFlight];
+#pragma unroll
+      for (int u = 0; u < kRowsInFlight; ++u) {
+        const int64_t r = r0 + u * step;
+        if (r < R) v[u] = __ldg(src + r * cols + (cols - 1 - c));
+      }
+#pragma unroll
+      for (int u = 0; u < kRowsInFlight; ++u) {
+        const int64_t r = r0 + u * step;
+        if (r < R) {
+          __stcs(dst + r * cols + c, make_int4(v[u].w, v[u].z, v[u].y, v[u].x));
+        }
+      }
+    } else {
+      int32_t v[kRowsInFlight];
+#pragma unroll
+      for (int u = 0; u < kRowsInFlight; ++u) {
+        const int64_t r = r0 + u * step;
+        if (r < R) v[u] = __ldg(a + r * L + (L - 1 - c));
+      }
+#pragma unroll
+      for (int u = 0; u < kRowsInFlight; ++u) {
+        const int64_t r = r0 + u * step;
+        if (r < R) __stcs(out + r * L + c, v[u]);
+      }
+    }
   }
 }
 
+// P10: out[r, c] = out[r, c + L] = a[r, c], each input element or vector
+// read once and stored twice.
 __global__ void __launch_bounds__(kThreads)
-reverse_lanes_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out,
-                     int64_t R, int64_t L) {
-  const int64_t n = R * L;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       e < n; e += stride) {
-    const int64_t r = e / L;
-    const int64_t c = e - r * L;
-    out[e] = a[r * L + (L - 1 - c)];
+tile_concat_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out,
+                   int64_t R, int L, bool vec) {
+  const int cols = vec ? L / 4 : L;
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= cols) return;
+  const int64_t step = static_cast<int64_t>(blockDim.y);
+  for (int64_t r0 = static_cast<int64_t>(blockIdx.y) * step * kRowsInFlight +
+                    threadIdx.y;
+       r0 < R; r0 += static_cast<int64_t>(gridDim.y) * step * kRowsInFlight) {
+    if (vec) {
+      const int4* src = reinterpret_cast<const int4*>(a);
+      int4* dst = reinterpret_cast<int4*>(out);
+      int4 v[kRowsInFlight];
+#pragma unroll
+      for (int u = 0; u < kRowsInFlight; ++u) {
+        const int64_t r = r0 + u * step;
+        if (r < R) v[u] = __ldg(src + r * cols + c);
+      }
+#pragma unroll
+      for (int u = 0; u < kRowsInFlight; ++u) {
+        const int64_t r = r0 + u * step;
+        if (r < R) {
+          __stcs(dst + r * 2 * cols + c, v[u]);
+          __stcs(dst + r * 2 * cols + cols + c, v[u]);
+        }
+      }
+    } else {
+      int32_t v[kRowsInFlight];
+#pragma unroll
+      for (int u = 0; u < kRowsInFlight; ++u) {
+        const int64_t r = r0 + u * step;
+        if (r < R) v[u] = __ldg(a + r * L + c);
+      }
+#pragma unroll
+      for (int u = 0; u < kRowsInFlight; ++u) {
+        const int64_t r = r0 + u * step;
+        if (r < R) {
+          __stcs(out + r * 2 * L + c, v[u]);
+          __stcs(out + r * 2 * L + L + c, v[u]);
+        }
+      }
+    }
   }
 }
 
@@ -383,22 +489,29 @@ int probe_mini_compact(const void* alo, const void* ahi, const void* shc,
 }
 
 // P10. a: (R, L) int32; out: (R, 2L) int32 = [a | a] along the lanes.
+// Both 16-byte aligned; L < 2^31.
 int probe_tile_concat(const void* a, void* out, int64_t R, int64_t L,
                       void* stream) {
-  if (R < 1 || L < 1) return invalid();
-  tile_concat_kernel<<<grid_for(R * 2 * L), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(a), static_cast<int32_t*>(out), R, L);
+  if (R < 1 || L < 1 || L > 0x7fffffffLL) return invalid();
+  const bool vec = L % 4 == 0;
+  const RowTiles t = row_tiles(R, vec ? L / 4 : L);
+  tile_concat_kernel<<<t.grid, t.block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(a), static_cast<int32_t*>(out), R,
+      static_cast<int>(L), vec);
   return done();
 }
 
-// P11. a, out: (R, L) int32; out[r, c] = a[r, L - 1 - c].
+// P11. a, out: (R, L) int32, 16-byte aligned; out[r, c] = a[r, L - 1 - c];
+// L < 2^31.
 int probe_reverse_lanes(const void* a, void* out, int64_t R, int64_t L,
                         void* stream) {
-  if (R < 1 || L < 1) return invalid();
-  reverse_lanes_kernel<<<grid_for(R * L), kThreads, 0,
+  if (R < 1 || L < 1 || L > 0x7fffffffLL) return invalid();
+  const bool vec = L % 4 == 0;
+  const RowTiles t = row_tiles(R, vec ? L / 4 : L);
+  reverse_lanes_kernel<<<t.grid, t.block, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(a), static_cast<int32_t*>(out), R, L);
+      static_cast<const int32_t*>(a), static_cast<int32_t*>(out), R,
+      static_cast<int>(L), vec);
   return done();
 }
 

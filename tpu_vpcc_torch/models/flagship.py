@@ -20,14 +20,13 @@ from typing import List, Tuple
 
 import numpy as np
 
-from tpu_vpcc.atlas import groups as G
-from tpu_vpcc.atlas.patches import Patch
-from tpu_vpcc.ops.smoothing import AttrSmoothingConfig, SmoothingConfig
-from tpu_vpcc.runtime.pipeline import GofData
-from tpu_vpcc.utils.synthetic import SyntheticFrame, make_synthetic_frame
-
+from ..atlas import groups as G
+from ..atlas.patches import Patch
 from ..ops.reconstruct import FrameConfig, make_config
+from ..ops.smoothing import AttrSmoothingConfig, SmoothingConfig
 from ..ops.tiled import tile_plane
+from ..runtime.host import GofData
+from ..utils.synthetic import SyntheticFrame, make_synthetic_frame
 
 
 @dataclass

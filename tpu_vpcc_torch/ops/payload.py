@@ -29,8 +29,7 @@ import threading
 
 import torch
 
-from tpu_vpcc.atlas import groups as G
-
+from ..atlas import groups as G
 from . import _build
 from .reconstruct import apply_inverse_rot45
 from .tiled import _gather_tiles, _slot_geometry, _wrap32

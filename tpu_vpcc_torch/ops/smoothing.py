@@ -11,20 +11,52 @@ floors, as in numpy and JAX); cell indices are int64. Integer scatters
 add exactly in any order, so the result does not depend on the
 device's atomics.
 
-The configurations and the numpy oracle are ``tpu_vpcc.ops.smoothing``'s
-(that module imports no jax at module level).
+The two configurations are copied from ``tpu_vpcc.ops.smoothing``; its
+numpy oracle is copied into :mod:`.smoothing_np`.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
-from tpu_vpcc.ops.smoothing import (  # noqa: F401  (re-exported configs)
-    _BIG,
-    AttrSmoothingConfig,
-    SmoothingConfig,
-)
 
+@dataclass(frozen=True)
+class SmoothingConfig:
+    """Static grid-smoothing parameters (from the GeometrySmoothing SEI:
+    ``grid_size_minus_2 + 2`` and ``threshold``; ``reader.rs:1452-1505``)."""
+
+    grid_size: int = 8
+    threshold: int = 64  # squared-distance threshold
+    geometry_bitdepth_3d: int = 10
+
+    @property
+    def grid_width(self) -> int:
+        return -(-(1 << self.geometry_bitdepth_3d) // self.grid_size)
+
+
+@dataclass(frozen=True)
+class AttrSmoothingConfig:
+    """Static attribute-smoothing parameters (from the AttributeSmoothing
+    SEI, method 1): cells of ``grid_size``³, and two gates — replace a
+    candidate's color with the neighborhood blend only when the local
+    luma spread is at most ``threshold_variation`` (the region is
+    homogeneous) AND the point's luma deviates from the blend by at least
+    ``threshold_difference`` (the point is an outlier there)."""
+
+    grid_size: int = 8
+    threshold_variation: int = 10
+    threshold_difference: int = 10
+    geometry_bitdepth_3d: int = 10
+
+    @property
+    def grid_width(self) -> int:
+        return -(-(1 << self.geometry_bitdepth_3d) // self.grid_size)
+
+
+_BIG = np.int32(1 << 30)
 BIG = int(_BIG)
 
 

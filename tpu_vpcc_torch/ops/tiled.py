@@ -42,9 +42,8 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from tpu_vpcc.atlas import groups as G
-from tpu_vpcc.v3c.syntax import UnsupportedFeature
-
+from ..atlas import groups as G
+from ..v3c.syntax import UnsupportedFeature
 from .reconstruct import FrameConfig
 from .shift_compact import shift_compact_ops
 
@@ -98,7 +97,7 @@ def untile_plane(tiled, bh: int, bw: int):
 def native_pack_available() -> bool:
     """Whether the native video bridge (which carries the C pack) loads.
     Probed once per process: a failed build is not retried per call."""
-    from tpu_vpcc.video import codec
+    from ..video import codec
 
     try:
         codec._load()
@@ -119,7 +118,7 @@ def pack_planes_host(occ_t, geo0_t, geo1_t, ay_t, au_t, av_t, cfg,
     twin in the native video bridge runs first; this numpy form is its
     exact host fallback when that library cannot load."""
     if native_pack_available():
-        from tpu_vpcc.video.codec import native_pack_planes
+        from ..video.codec import native_pack_planes
 
         cat = native_pack_planes(
             occ_t, geo0_t, geo1_t, ay_t, au_t, av_t, cfg, swap=swap

@@ -14,7 +14,7 @@ import logging
 import sys
 from pathlib import Path
 
-from tpu_vpcc.utils.ply import frame_output_path, write_ply
+from ..utils.ply import frame_output_path, write_ply
 
 
 def main(argv=None) -> int:

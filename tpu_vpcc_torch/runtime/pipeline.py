@@ -20,8 +20,9 @@ Per GOF:
      the dispatch names) and convert its colours, then copy it to the
      host as a ``PointSet3``.
 
-The jax-free host layers (V3C, atlas, video, the numpy oracle and the
-raw/EOM/PLR tails) are shared with ``tpu_vpcc``, not copied. What needs
+The host layers (V3C, atlas, video, the numpy oracle and the raw/EOM/PLR
+tails, :mod:`.host`) are the port's own copies of ``tpu_vpcc``'s; the
+port imports nothing of that package. What needs
 the gather fallback (non-tileable orientations, samples wider than 10
 bits) or a mesh is not ported yet and raises ``UnsupportedFeature``.
 """
@@ -40,11 +41,17 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from tpu_vpcc.atlas.atlas_hash import collect_daih_by_frame, verify_frame_hashes
-from tpu_vpcc.atlas.patches import create_patch_frames
-from tpu_vpcc.bitio import Bitstream
-from tpu_vpcc.reconstruction.pointset import PointSet3
-from tpu_vpcc.runtime.pipeline import (
+from ..atlas.atlas_hash import collect_daih_by_frame, verify_frame_hashes
+from ..atlas.patches import create_patch_frames
+from ..bitio import Bitstream
+from ..reconstruction.pointset import PointSet3
+from ..utils.stats import DecodeStats, stage_timer
+from ..v3c.context import Context
+from ..v3c.stream import SampleStreamV3CUnit
+from ..v3c.syntax import UnsupportedFeature, VideoType
+from ..video import decompress_video
+from ..video.substream import codec_id_from_v3c
+from .host import (
     GofData,
     SecAttr,
     _append_eom_points,
@@ -61,12 +68,6 @@ from tpu_vpcc.runtime.pipeline import (
     extract_geo_smoothing,
     extract_occupancy_synthesis,
 )
-from tpu_vpcc.utils.stats import DecodeStats, stage_timer
-from tpu_vpcc.v3c.context import Context
-from tpu_vpcc.v3c.stream import SampleStreamV3CUnit
-from tpu_vpcc.v3c.syntax import UnsupportedFeature, VideoType
-from tpu_vpcc.video import decompress_video
-from tpu_vpcc.video.substream import codec_id_from_v3c
 
 log = logging.getLogger(__name__)
 
@@ -564,7 +565,7 @@ def prepare_gof(
     # hash by definition precedes).
     daih_by_frame = collect_daih_by_frame(context)
     if daih_by_frame:
-        from tpu_vpcc.atlas.atlas_hash import high_level_byte_string
+        from ..atlas.atlas_hash import high_level_byte_string
         from ..ops.tiled import untile_plane as _untile
 
         occ_res = 1 << asps.log2_patch_packing_block_size
@@ -766,7 +767,7 @@ def prepare_gof(
         # occupancy at canvas resolution once per frame; the stream
         # behaves as occupancy-precision 1 downstream
         from ..ops.tiled import untile_plane
-        from tpu_vpcc.reconstruction.occupancy_synthesis import (
+        from ..reconstruction.occupancy_synthesis import (
             synthesize_occupancy,
         )
 
@@ -794,7 +795,7 @@ def prepare_gof(
 
     if pix_il:
         from ..ops.tiled import tile_plane
-        from tpu_vpcc.reconstruction.pixel_interleave import (
+        from ..reconstruction.pixel_interleave import (
             deinterleave_geometry,
             upsample_occupancy_full,
         )
@@ -1008,8 +1009,7 @@ def _st(stats, name: str):
 def _gof_frame_tables(gof: GofData, metas):
     """The FrameConfig and per-frame block group tables for ``metas``,
     with pack30 set when every coordinate provably fits 10 bits."""
-    from tpu_vpcc.atlas.groups import build_group_table, coords_fit_10bit
-
+    from ..atlas.groups import build_group_table, coords_fit_10bit
     from ..ops.reconstruct import make_config
 
     cfg = make_config(
@@ -1057,7 +1057,7 @@ def _gof_frame_tables(gof: GofData, metas):
 
 def _gof_tables_and_bucket(gof: GofData):
     """Tables plus one shared group bucket for a whole GOF."""
-    from tpu_vpcc.atlas.groups import bucket_group_count
+    from ..atlas.groups import bucket_group_count
 
     cfg, tables = _gof_frame_tables(gof, gof.metas)
     g_bucket = bucket_group_count(
@@ -1071,8 +1071,7 @@ def _gof_device_inputs(gof: GofData, metas, prebuilt, g_bucket: int) -> DeviceIn
     tables bucketed to ``g_bucket`` rows (live groups first, in emission
     order; padding rows have G_VALID=0) and the packed, host-oriented
     cat."""
-    from tpu_vpcc.atlas.groups import N_GROUP_FIELDS
-
+    from ..atlas.groups import N_GROUP_FIELDS
     from ..ops.tiled import (
         stage_cat_inputs,
         tile_plane,

@@ -76,6 +76,11 @@ def probe_interleave16(device, run: Run = probes.call, R: int = 8,
 
 PROBE_FUNCTIONS = (probe_interleave, probe_repeat, probe_rev,
                    probe_interleave16)
+#: (R, L) shapes off the kernels' fast path for P10 and P11: widths that
+#: are no multiple of four int32 (the scalar path), a single row, and row
+#: counts that are no multiple of a block's row tile
+EDGE_SHAPES = ((8, 1), (8, 3), (8, 5), (8, 511), (8, 513), (1, 512),
+               (1, 5), (37, 512), (1031, 5), (37, 4))
 
 
 def main(argv=None) -> int:
