@@ -14,12 +14,16 @@ failure:
      nvcc's ``-Xptxas -v`` lines, and whether the host video bridge
      (libavcodec) loads;
   2. K1 against its plain PyTorch version on the card: densities 0, 0.3,
-     0.7, 1 and all-D1-invalid, F = 1 and 2, pack30 and split operands,
-     the flagship slot extent and a small odd tile count. Counts equal,
-     prefixes byte-equal;
-  2b. K1F against its plain version: densities 0, 0.3, 0.7 and 1, F = 1
-     and 2, the flagship wide extent and a small odd tile count. Counts
-     equal, prefixes byte-equal;
+     0.7, 1 and all-D1-invalid, F = 1, 2 and 3, pack30 and split
+     operands, at the flagship's extent and those that
+     ``shift_compact.edge_extents`` derives from the kernel's tile (one
+     tile, one tile plus one pixel, three tiles with the last partial,
+     33 tiles, a ragged one).
+     Counts equal, prefixes byte-equal, and two calls on one input
+     byte-equal;
+  2b. K1F against its plain version: densities 0, 0.3, 0.7 and 1, F = 1,
+     2 and 3, at the same edge extents in slots. Counts equal, prefixes
+     byte-equal, two calls byte-equal;
   3. the flagship main path on the card: two GOFs of two synthetic
      1280^2 frames each through ``Decoder.start_gofs`` with both GOFs in
      flight (group tables, cat staging, gather + words + K1 on the card,
@@ -70,9 +74,11 @@ kernel, CUDA events) and single-call CUDA-event window, the plain
 version's device-only and single-call times, the device-only time of one
 PyTorch call that computes the same function where there is one
 (``library_ms``), the bytes the function must move and the bound they
-give at 3.35 TB/s, and the share of that bound; kernel, library call and
-plain version in turns. The run fails where no whole trace is taken, or
-a device-only time lies below its bound or above its queued time.
+give at 3.35 TB/s, the share of that bound, and the kernel's device-only
+time split by record name (each kernel and memset of one call); kernel,
+library call and plain version in turns. The run fails where no whole
+trace is taken, or a device-only time lies below its bound or above its
+queued time.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come one
 JSON line of per-kernel results and the ``nvidia-smi`` name and power
@@ -184,6 +190,25 @@ def phase_build():
     return True
 
 
+def _same_twice(run, check_fn, what):
+    """Run the kernel twice on one input: counts and prefixes byte-equal
+    to the plain version (``check_fn``) and to each other."""
+    import torch
+
+    got, n_got = run()
+    got2, n_got2 = run()
+    ref, n_ref = check_fn()
+    torch.cuda.synchronize()
+    check(torch.equal(n_got, n_ref),
+          f"{what} counts {n_got.tolist()} != plain {n_ref.tolist()}")
+    counts = n_ref.tolist()
+    err = prefix_err(got, ref, counts)
+    check(err == 0, f"{what} prefix differs from plain (max abs err {err})")
+    check(torch.equal(n_got2, n_got) and prefix_err(got2, got, counts) == 0,
+          f"{what}: two calls on one input differ")
+    return err
+
+
 def _k1_case(F, S, density, pack30, d1_invalid, gen):
     import torch
 
@@ -202,35 +227,34 @@ def _k1_case(F, S, density, pack30, d1_invalid, gen):
     valid = torch.rand((F, S), device=dev, generator=gen) < density
     if d1_invalid:
         valid[:, S // 2:] = False
-    got, n_got = sc.shift_compact_ops(w0, zs, wc, valid)
-    ref, n_ref = sc.shift_compact_ops_reference(w0, zs, wc, valid)
-    torch.cuda.synchronize()
-    check(torch.equal(n_got, n_ref),
-          f"K1 counts {n_got.tolist()} != plain {n_ref.tolist()}")
-    counts = n_ref.tolist()
-    err = prefix_err(got, ref, counts)
-    check(err == 0, f"K1 prefix differs from plain (max abs err {err})")
-    return counts
+    return _same_twice(
+        lambda: sc.shift_compact_ops(w0, zs, wc, valid),
+        lambda: sc.shift_compact_ops_reference(w0, zs, wc, valid),
+        f"K1 (F={F} S={S} density={density} pack30={pack30} "
+        f"all-D1-invalid={d1_invalid})")
 
 
 def phase_k1(S_flag: int):
     import torch
 
+    from tpu_vpcc_torch.ops import shift_compact as sc
+
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    s_odd = 2 * (2 * 2048 + 768)  # 3 tiles of the kernel, the last partial
-    cases = []
-    for S in (S_flag, s_odd):
-        for F in (1, 2):
+    tile = sc.tile_items()
+    n = 0
+    for name, half in {"flagship": S_flag // 2,
+                       **sc.edge_extents(tile)}.items():
+        for F in (1, 2, 3):
             for pack30 in (True, False):
                 for density in (0.0, 0.3, 0.7, 1.0):
-                    cases.append((F, S, density, pack30, False))
-                cases.append((F, S, 0.7, pack30, True))
-    for F, S, density, pack30, d1_inv in cases:
-        counts = _k1_case(F, S, density, pack30, d1_inv, gen)
-        print(f"K1 vs plain: F={F} S={S} density={density} "
-              f"{'pack30' if pack30 else 'split'}"
-              f"{' all-D1-invalid' if d1_inv else ''}: counts {counts} equal")
-    print(f"phase 2: {len(cases)} K1 cases byte-equal to the plain version")
+                    _k1_case(F, 2 * half, density, pack30, False, gen)
+                _k1_case(F, 2 * half, 0.7, pack30, True, gen)
+                n += 5
+        print(f"K1 vs plain, {name} (S={2 * half}, {-(-half // tile)} "
+              f"tiles of {tile} pixels): F=1-3, pack30 and split, densities "
+              f"0-1 and all-D1-invalid: counts and prefixes equal, two "
+              f"calls byte-equal")
+    print(f"phase 2: {n} K1 cases byte-equal to the plain version")
 
 
 def _k1f_case(F, S, density, gen):
@@ -246,32 +270,29 @@ def _k1f_case(F, S, density, gen):
         for _ in range(3)
     ]
     valid = torch.rand((F, S), device=dev, generator=gen) < density
-    got, n_got = sc.shift_compact_full(ops, valid)
-    ref, n_ref = sc.shift_compact_full_reference(ops, valid)
-    torch.cuda.synchronize()
-    check(torch.equal(n_got, n_ref),
-          f"K1F counts {n_got.tolist()} != plain {n_ref.tolist()}")
-    counts = n_ref.tolist()
-    err = prefix_err(got, ref, counts)
-    check(err == 0, f"K1F prefix differs from plain (max abs err {err})")
-    return counts, err
+    return _same_twice(
+        lambda: sc.shift_compact_full(ops, valid),
+        lambda: sc.shift_compact_full_reference(ops, valid),
+        f"K1F (F={F} S={S} density={density})")
 
 
 def phase_k1f(S_flag: int) -> int:
     """K1F against its plain version; returns the max abs error."""
     import torch
 
+    from tpu_vpcc_torch.ops import shift_compact as sc
+
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    s_odd = 2 * 2048 + 768  # 3 tiles of the kernel, the last partial
+    tile = sc.tile_items()
     n, err = 0, 0
-    for S in (S_flag, s_odd):
-        for F in (1, 2):
+    for name, S in {"flagship": S_flag, **sc.edge_extents(tile)}.items():
+        for F in (1, 2, 3):
             for density in (0.0, 0.3, 0.7, 1.0):
-                counts, e = _k1f_case(F, S, density, gen)
-                err = max(err, e)
+                err = max(err, _k1f_case(F, S, density, gen))
                 n += 1
-                print(f"K1F vs plain: F={F} S={S} density={density}: "
-                      f"counts {counts} equal")
+        print(f"K1F vs plain, {name} (S={S}, {-(-S // tile)} tiles of "
+              f"{tile} slots): F=1-3, densities 0-1: counts and prefixes "
+              f"equal, two calls byte-equal")
     print(f"phase 2b: {n} K1F cases byte-equal to the plain version")
     return err
 

@@ -211,6 +211,23 @@ def test_variant_names():
         E.parse_variants("cursor2")
 
 
+@pytest.mark.parametrize("floor,ceiling,spread,says", [
+    (0.0030, 0.0020, 0.0001, "a single pass cannot beat K1F"),
+    (0.0010, 0.0300, 0.0020, "could save at most 0.029000 ms/frame"),
+    (-0.0035, -0.0021, 0.0100, "unresolved"),  # the ceiling within it
+    (0.0110, 0.0180, 0.0200, "unresolved"),  # the gap within it
+    (0.0030, 0.0025, 0.0010, "unresolved"),  # a floor above, within it
+    # a floor below 0 is noise: beyond the spread it is the noise
+    (-0.001079, 0.000787, 0.000764, "unresolved"),
+    (-0.0002, 0.0300, 0.0010, "could save at most 0.030000 ms/frame"),
+])
+def test_verdict_is_unresolved_within_the_spread(floor, ceiling, spread,
+                                                 says):
+    line = E.verdict({"floor_ms": floor, "ceiling_ms": ceiling,
+                      "spread_ms": spread})
+    assert line.startswith("verdict: floor") and says in line
+
+
 def test_experiment_needs_a_card_unless_told_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):

@@ -367,8 +367,8 @@ def _many(calls, scan=None, memset=None, spin=2, extra=None):
 def test_whole_trace_time_leaves_out_the_spins(spin):
     """A whole trace gives the calls' own device time per call, whether
     or not the spins around the calls survived in it."""
-    assert KT.whole_trace_ms(_SPIN, _ONE, _many(20, spin=spin), 20) \
-        == 3.0 / 1e3
+    split = KT.trace_split_ms(_SPIN, _ONE, _many(20, spin=spin), 20)
+    assert sum(split.values()) == 3.0 / 1e3
 
 
 @pytest.mark.parametrize("many", [
@@ -384,7 +384,7 @@ def test_trace_that_is_not_whole_raises(many):
     """``kernel_times`` takes a device-only time only from a whole trace:
     each name of one call's trace, exactly as many times as the calls."""
     with pytest.raises(KT.TimingError):
-        KT.whole_trace_ms(_SPIN, _ONE, many, 20)
+        KT.trace_split_ms(_SPIN, _ONE, many, 20)
 
 
 @pytest.mark.parametrize("spins,one", [
@@ -394,4 +394,32 @@ def test_trace_that_is_not_whole_raises(many):
 ], ids=["no-spins", "no-work", "one-call-lost-a-name"])
 def test_reference_traces_must_be_whole(spins, one):
     with pytest.raises(KT.TimingError):
-        KT.whole_trace_ms(spins, one, _many(20), 20)
+        KT.trace_split_ms(spins, one, _many(20), 20)
+
+
+def test_trace_split_gives_each_name_its_time_per_call():
+    """The per-name split of a whole trace: each name's durations over
+    the calls, per call."""
+    split = KT.trace_split_ms(_SPIN, _ONE, _many(20), 20)
+    assert split == {"scan": 2.0 / 1e3, "memset": 1.0 / 1e3}
+    uneven = _many(20, extra={"scan": [1.0, 3.0] * 20,
+                              "memset": [0.5] * 20})
+    one = {"spin": [500.0], "scan": [1.0, 3.0], "memset": [0.5]}
+    assert KT.trace_split_ms(_SPIN, one, uneven, 20) == {
+        "scan": 4.0 / 1e3, "memset": 0.5 / 1e3}
+    with pytest.raises(KT.TimingError):
+        KT.trace_split_ms(_SPIN, _ONE, _many(20, scan=19), 20)
+
+
+@pytest.mark.parametrize("name,short", [
+    ("void (anonymous namespace)::count_kernel<true>(unsigned char const*, "
+     "long, long, int, int*)", "count_kernel<true>"),
+    ("(anonymous namespace)::scan_kernel(int const*, int, int*, int*)",
+     "scan_kernel"),
+    ("void at::native::vectorized_elementwise_kernel<4>(int)",
+     "vectorized_elementwise_kernel<4>"),
+    ("Memset (Device)", "Memset"),
+    ("compact_kernel", "compact_kernel"),
+])
+def test_short_record_names(name, short):
+    assert KT.short_name(name) == short

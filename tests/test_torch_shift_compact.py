@@ -51,9 +51,22 @@ def _assert_prefixes(ref_ops, ref_counts, ops, counts, valid):
             np.testing.assert_array_equal(a[f, :n], b[f, :n])
 
 
+#: (F, S, extent) at the edges of the kernel's 4,096-pixel tiles that the
+#: Pallas kernel also takes (S a multiple of its extent): the first case,
+#: one tile, three tiles in three frames, and 36 tiles (the look-back
+#: passes a warp's 32 status words)
+PALLAS_EDGES = {
+    "2x16384": (2, 16384, 8192),
+    "one-tile": (1, 8192, 8192),
+    "F3-3-tiles": (3, 24576, 8192),
+    "36-tiles": (1, 294912, 16384),
+}
+
+
+@pytest.mark.parametrize("edge", sorted(PALLAS_EDGES))
 @pytest.mark.parametrize("pack30", [True, False])
-def test_plain_matches_pallas_kernel(pack30):
-    F, S, extent = 2, 16384, 8192
+def test_plain_matches_pallas_kernel(pack30, edge):
+    F, S, extent = PALLAS_EDGES[edge]
     w0, zs, wc, valid = _words(F, S, 0.6, pack30, seed=5 + pack30)
     ref_ops, ref_counts = jax_shift_compact_ops(
         jnp.asarray(w0), None if zs is None else jnp.asarray(zs),
@@ -109,6 +122,29 @@ def test_plain_matches_sort_prefix(F, kind):
         _assert_prefixes(ref_ops, valid.sum(axis=1), ops, counts, valid)
 
 
+#: pixels per frame at the edges of the kernel's 4,096-pixel tiles that
+#: no Pallas extent divides: one tile plus one pixel, and three tiles
+#: plus three (neither a multiple of the kernel's 16-byte validity vector)
+RAGGED_EDGES = {"one-tile+1": 4097, "3-tiles+3": 8963}
+
+
+@pytest.mark.parametrize("F", [1, 3])
+@pytest.mark.parametrize("edge", sorted(RAGGED_EDGES))
+def test_plain_matches_sort_prefix_at_ragged_edges(edge, F):
+    S = 2 * RAGGED_EDGES[edge]
+    r = np.random.default_rng(S + F)
+    for pack30 in (True, False):
+        w0, zs, wc, _ = _words(F, S, 0.5, pack30, seed=S)
+        valid = r.random((F, S)) < 0.6
+        ref_ops = _narrow_sort_ops(
+            jnp.asarray(w0), None if zs is None else jnp.asarray(zs),
+            jnp.asarray(wc), jnp.asarray(valid),
+            jnp.asarray(_patch_order_emi(F, S)), F, S,
+        )
+        ops, counts = _port(w0, zs, wc, valid)
+        _assert_prefixes(ref_ops, valid.sum(axis=1), ops, counts, valid)
+
+
 def test_cpu_path_is_plain_and_uncounted():
     w0, zs, wc, valid = _words(2, 512, 0.5, False, seed=1)
     args = (torch.from_numpy(w0.view(np.int32)),
@@ -154,13 +190,33 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         _build.build("shift_compact")
 
 
+def test_edge_extents_reach_each_edge():
+    """The edges the card tests and ``chip_smoke.py`` take, at the
+    kernel's tile: one tile and one past it, a partial last tile, more
+    tiles than a warp's look-back window, and extents the 16-byte
+    validity vector does not divide; the CPU parity tests' ragged
+    extents are among them."""
+    tile = 4096
+    edges = sc.edge_extents(tile)
+    assert edges["one tile"] == tile and edges["one tile + 1"] == tile + 1
+    assert edges["3 tiles, last partial"] % tile
+    assert -(-edges["3 tiles, last partial"] // tile) == 3
+    assert -(-edges["33 tiles + 256"] // tile) > 32
+    assert sum(n % 16 != 0 for n in edges.values()) == 2
+    assert set(RAGGED_EDGES.values()) <= set(edges.values())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("pack30", [True, False])
 def test_kernel_matches_plain_on_card(pack30):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (on the card: pytest -m cuda)")
-    for F, S, density in [(1, 9728, 0.3), (2, 1835008, 0.7), (2, 4096, 1.0),
-                          (2, 4096, 0.0)]:
+    # the kernel's edges (one tile, one past it, a partial last tile, 33
+    # tiles, a ragged extent) in one and three frames, and the flagship's
+    edges = [(F, 2 * half) for half in sc.edge_extents(sc.tile_items())
+             .values() for F in (1, 3)] + [(2, 1835008)]
+    cases = [(F, S, d) for F, S in edges for d in (0.0, 0.3, 0.7, 1.0)]
+    for F, S, density in cases:
         w0, zs, wc, valid = (
             None if a is None else torch.from_numpy(
                 a.view({np.uint32: np.int32, np.uint16: np.int16}.get(
@@ -170,10 +226,13 @@ def test_kernel_matches_plain_on_card(pack30):
         )
         before = sc.launches
         got, n_got = sc.shift_compact_ops(w0, zs, wc, valid)
+        again, n_again = sc.shift_compact_ops(w0, zs, wc, valid)
         ref, n_ref = sc.shift_compact_ops_reference(w0, zs, wc, valid)
         torch.cuda.synchronize()
-        assert sc.launches == before + 1
-        assert torch.equal(n_got, n_ref)
-        for a, b in zip(got, ref):
+        assert sc.launches == before + 2
+        assert torch.equal(n_got, n_ref) and torch.equal(n_again, n_ref)
+        for a, b, c in zip(got, again, ref):
             for f, n in enumerate(n_ref.tolist()):
-                assert torch.equal(a[f, :n], b[f, :n])
+                assert torch.equal(a[f, :n], c[f, :n])
+                assert torch.equal(b[f, :n], c[f, :n])
+

@@ -86,6 +86,12 @@ def _k1f_words(F, S, seed):
         (1, 8192, 2048, 0.0),
         (1, 16384, 16384, 1.0),
         (3, 16384, 4096, 0.5),
+        # the edges of the kernel's 4,096-slot tiles that the Pallas
+        # kernel also takes: one tile, three frames of three tiles, 36
+        # tiles (the look-back passes a warp's 32 status words)
+        (1, 4096, 4096, 0.6),
+        (3, 12288, 4096, 0.6),
+        (1, 147456, 8192, 0.6),
     ],
 )
 def test_k1f_plain_matches_pallas_kernel(F, S, extent, density):
@@ -133,6 +139,23 @@ def test_k1f_odd_extent_and_empty_frames():
                 ref[f, : valid[f].sum()] = w[f][valid[f]]
         _assert_full_prefixes(ref_ops, valid.sum(axis=1), ops, counts,
                               words, valid)
+
+
+@pytest.mark.parametrize("F", [1, 3])
+@pytest.mark.parametrize("S", [4097, 8963], ids=["one-tile+1", "3-tiles+3"])
+def test_k1f_plain_at_ragged_tile_edges(S, F):
+    """Extents at the edges of the kernel's 4,096-slot tiles that no
+    Pallas chunk divides and the kernel's 16-byte validity vector does
+    not either: the plain version against numpy."""
+    words = _k1f_words(F, S, seed=S + F)
+    valid = np.random.default_rng(S * F).random((F, S)) < 0.6
+    ops, counts = _k1f_port(words, valid)
+    ref_ops = [np.zeros_like(w) for w in words]
+    for w, ref in zip(words, ref_ops):
+        for f in range(F):
+            ref[f, : valid[f].sum()] = w[f][valid[f]]
+    _assert_full_prefixes(ref_ops, valid.sum(axis=1), ops, counts, words,
+                          valid)
 
 
 def test_k1f_cpu_path_is_plain_and_uncounted():
@@ -460,19 +483,25 @@ def _cuda_or_skip():
 @pytest.mark.cuda
 def test_k1f_kernel_matches_plain_on_card():
     _cuda_or_skip()
-    for F, S, density in [(1, 4864, 0.3), (2, 1835008, 0.7), (2, 4096, 1.0),
-                          (2, 4096, 0.0)]:
-        words = [_i32(w).cuda() for w in _k1f_words(F, S, seed=S)]
-        valid = (torch.rand((F, S), device="cuda") < density)
-        before = sc.full_launches
-        got, n_got = sc.shift_compact_full(words, valid)
-        ref, n_ref = sc.shift_compact_full_reference(words, valid)
-        torch.cuda.synchronize()
-        assert sc.full_launches == before + 1
-        assert torch.equal(n_got, n_ref)
-        for a, b in zip(got, ref):
-            for f, n in enumerate(n_ref.tolist()):
-                assert torch.equal(a[f, :n], b[f, :n])
+    # the kernel's edges (one tile, one past it, a partial last tile, 33
+    # tiles, a ragged extent) in one and three frames, and the flagship's
+    edges = [(F, S) for S in sc.edge_extents(sc.tile_items()).values()
+             for F in (1, 3)] + [(2, 1835008)]
+    for F, S in edges:
+        for density in (0.0, 0.3, 0.7, 1.0):
+            words = [_i32(w).cuda() for w in _k1f_words(F, S, seed=S)]
+            valid = (torch.rand((F, S), device="cuda") < density)
+            before = sc.full_launches
+            got, n_got = sc.shift_compact_full(words, valid)
+            again, n_again = sc.shift_compact_full(words, valid)
+            ref, n_ref = sc.shift_compact_full_reference(words, valid)
+            torch.cuda.synchronize()
+            assert sc.full_launches == before + 2
+            assert torch.equal(n_got, n_ref) and torch.equal(n_again, n_ref)
+            for a, b, c in zip(got, again, ref):
+                for f, n in enumerate(n_ref.tolist()):
+                    assert torch.equal(a[f, :n], c[f, :n])
+                    assert torch.equal(b[f, :n], c[f, :n])
 
 
 @pytest.mark.cuda

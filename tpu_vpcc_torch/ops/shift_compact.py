@@ -21,7 +21,10 @@ moves bits.
 
 On a CPU tensor both wrappers run their plain PyTorch versions; on a
 CUDA tensor they launch the hand-written kernels
-(``csrc/shift_compact.cu``) or raise.
+(``csrc/shift_compact.cu``: one ticketed look-back pass per call, after
+a memset of the call's scratch) or raise. The kernels take any ``F`` and
+``S`` (even ``S`` for K1); a stream that is not 16-byte aligned takes
+the kernel's scalar loads.
 """
 
 from __future__ import annotations
@@ -110,16 +113,43 @@ def _load():
         lib = _build.load("shift_compact")
         lib.shift_compact_tile_pixels.restype = ctypes.c_int
         lib.shift_compact_tile_pixels.argtypes = []
-        lib.shift_compact_narrow.restype = ctypes.c_int
-        lib.shift_compact_narrow.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
-        )
-        lib.shift_compact_full.restype = ctypes.c_int
-        lib.shift_compact_full.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
-        )
+        lib.shift_compact_scratch_words.restype = ctypes.c_int64
+        lib.shift_compact_scratch_words.argtypes = [ctypes.c_int64] * 2
+        for fn in (lib.shift_compact_narrow, lib.shift_compact_full):
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int64] * 2
+                           + [ctypes.c_void_p])
         _lib = lib
     return _lib
+
+
+def tile_items() -> int:
+    """The kernels' tile (K1: pixels, K1F: slots), as the library reports
+    it."""
+    return _load().shift_compact_tile_pixels()
+
+
+def edge_extents(tile: int) -> dict:
+    """Per-frame item extents (K1: pixels per half, K1F: slots) at the
+    edges of kernels with tiles of ``tile`` items, by name: one tile, one
+    tile plus one item, three tiles with the last partial, more than 32
+    tiles (the look-back passes a warp's window of status words), and an
+    extent that is not a multiple of the 16-byte validity vector (the
+    kernels' scalar loads)."""
+    return {
+        "one tile": tile,
+        "one tile + 1": tile + 1,
+        "3 tiles, last partial": 2 * tile + 768,
+        "33 tiles + 256": 33 * tile + 256,
+        "3 tiles + 3, ragged": 2 * tile + 771,
+    }
+
+
+def _scratch(lib, F, items, dev):
+    """The call's scratch: a status word per tile and the ticket (the C
+    function zeroes it on the stream)."""
+    n = lib.shift_compact_scratch_words(F, items)
+    return torch.empty(n, dtype=torch.int64, device=dev)
 
 
 def _shift_compact_cuda(w0, zs, wc, valid):
@@ -128,14 +158,12 @@ def _shift_compact_cuda(w0, zs, wc, valid):
             raise ValueError("K1 takes contiguous (F, S) tensors")
     lib = _load()
     F, S = valid.shape
-    tile = lib.shift_compact_tile_pixels()
-    n_tiles = max(1, -(-(S // 2) // tile))
     dev = valid.device
     outs = [torch.empty_like(w0)] + (
         [] if zs is None else [torch.empty_like(zs)]
     ) + [torch.empty_like(wc)]
     counts = torch.empty(F, dtype=torch.int32, device=dev)
-    scratch = torch.empty(2 * F * n_tiles, dtype=torch.int32, device=dev)
+    scratch = _scratch(lib, F, S // 2, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.shift_compact_narrow(
@@ -214,11 +242,10 @@ def _shift_compact_full_cuda(ops, valid):
             raise ValueError("K1F takes contiguous (F, S) tensors")
     lib = _load()
     F, S = valid.shape
-    n_tiles = max(1, -(-S // lib.shift_compact_tile_pixels()))
     dev = valid.device
     outs = [torch.empty_like(o) for o in ops]
     counts = torch.empty(F, dtype=torch.int32, device=dev)
-    scratch = torch.empty(2 * F * n_tiles, dtype=torch.int32, device=dev)
+    scratch = _scratch(lib, F, S, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.shift_compact_full(

@@ -17,14 +17,22 @@ host-packed cat), four variants, each ending in the unpacked
               output is deliberately uncompacted chunks; only its count and
               its traffic are real) + unpack.
 
-Each is timed with CUDA events, as ms per frame. ``ceiling_ms =
+Each is timed as ms per frame: on a card by its device-only time
+(``kernel_times.device_ms``: the card's own time per call, from a whole
+``torch.profiler`` trace of ``reps`` back-to-back calls, so the host's
+enqueue is not in it), on the CPU by the host clock. ``ceiling_ms =
 full_order - nosort`` is K1F's marginal cost: the most any single-pass
 redesign of K1F could save. ``floor_ms = cursor - nosort`` is the marginal
 cost of moving the chunks with a carried cursor and no packing work: any
-single pass costs at least that. Decision rule: if ``floor_ms >=
+single pass costs at least that. Each variant is timed twice, in turns;
+``spread_ms`` is the largest gap between the two times of ``nosort``,
+``full_order`` or ``cursor``. Decision
+rule: if the ceiling, or its gap to the floor, is below the noise (the
+larger of ``spread_ms`` and a negative floor's size, since no pass costs
+less than none), the verdict is unresolved; else if ``floor_ms >=
 ceiling_ms``, a single pass cannot beat K1F; otherwise it could save at
-most ``ceiling_ms - floor_ms`` per frame. The cursor's count is checked
-against the sum of ``full``'s counts.
+most ``ceiling_ms - max(floor_ms, 0)`` per frame. The cursor's count is checked against the sum of
+``full``'s counts.
 
     python -m tpu_vpcc_torch.tools.compaction_experiment [batch] [reps] \\
         [variants] [--device cuda|cpu] [--size W] [--patches P]
@@ -32,7 +40,7 @@ against the sum of ``full``'s counts.
 ``variants`` is a comma list (default all four). The reference's other
 variants (sorts, split sorts, segment sorts, megarow/megaraw/raw gathers,
 cell tables) are TPU workarounds and raise; so does its ``fori_loop``
-K-vs-1 timing harness, which CUDA events replace. Without ``--device
+K-vs-1 timing harness, which the device-only times replace. Without ``--device
 cpu`` the tool needs a card and raises when it finds none; on the CPU it
 runs the plain versions and times them by the host clock.
 """
@@ -66,6 +74,7 @@ from ..ops.tiled import (
     to_device,
 )
 from . import resolve_device
+from .kernel_times import device_ms
 
 VARIANTS = ("full", "nosort", "full_order", "cursor")
 
@@ -175,24 +184,18 @@ def parse_variants(spec: str):
 
 
 def _time_ms(fn, device, reps: int, warmup: int = 2) -> float:
-    """Median time of ``fn()`` in ms: CUDA events on a card, the host
-    clock on the CPU."""
+    """The time of one ``fn()`` in ms: on a card its device-only time
+    over ``reps`` back-to-back calls, on the CPU the median host-clock
+    time of ``reps`` calls."""
+    if device.type == "cuda":
+        return device_ms(fn, calls=reps, warmup=warmup)
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
-        if device.type == "cuda":
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        else:
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
@@ -239,11 +242,14 @@ def experiment(batch: int, reps: int, variants, device, size: int = 1280,
         results["ceiling_ms"] = results["full_order"] - results["nosort"]
     if "cursor" in results and "nosort" in results:
         results["floor_ms"] = results["cursor"] - results["nosort"]
+    results["spread_ms"] = max(
+        ((max(ms[v]) - min(ms[v])) / batch
+         for v in ("nosort", "full_order", "cursor") if v in ms), default=0.0)
     results["batch"] = batch
     if device.type == "cuda":
         results["device"] = torch.cuda.get_device_name(device)
         results["card"] = _card_line()
-        results["clock"] = "cuda events"
+        results["clock"] = "device-only (torch.profiler)"
     else:
         results["device"] = "cpu"
         results["clock"] = "host"
@@ -255,12 +261,19 @@ def verdict(results) -> str:
     if "floor_ms" not in results or "ceiling_ms" not in results:
         return "verdict: needs the nosort, full_order and cursor variants"
     floor, ceiling = results["floor_ms"], results["ceiling_ms"]
+    spread = results["spread_ms"]
+    head = (f"verdict: floor {floor:.6f}, ceiling {ceiling:.6f}, spread "
+            f"{spread:.6f} ms/frame")
+    # no pass costs less than no compaction: a floor below 0 is noise too
+    noise = max(spread, -floor)
+    if ceiling < noise or abs(ceiling - floor) < noise:
+        return (f"{head}: unresolved, the ceiling or its gap to the floor "
+                f"lies within the noise ({noise:.6f})")
     if floor >= ceiling:
-        return (f"verdict: floor {floor:.6f} >= ceiling {ceiling:.6f} "
-                f"ms/frame: a single pass cannot beat K1F")
-    return (f"verdict: floor {floor:.6f} < ceiling {ceiling:.6f} ms/frame: "
-            f"a single pass could save at most {ceiling - floor:.6f} "
-            f"ms/frame of K1F's {ceiling:.6f}")
+        return f"{head}: a single pass cannot beat K1F"
+    return (f"{head}: a single pass could save at most "
+            f"{ceiling - max(floor, 0.0):.6f} ms/frame of K1F's "
+            f"{ceiling:.6f}")
 
 
 def main(argv=None) -> int:

@@ -105,13 +105,14 @@ def _trace(fn, calls: int) -> dict:
     return durs
 
 
-def whole_trace_ms(spins: dict, one: dict, many: dict, calls: int) -> float:
+def trace_split_ms(spins: dict, one: dict, many: dict, calls: int) -> dict:
     """The device time per call of a trace of ``calls`` calls (``many``),
-    in ms, from a trace of the spin kernels alone (``spins``, which names
-    them) and of one call (``one``), all by name as :func:`_trace` gives
-    them; the spins themselves are left out. Raises :class:`TimingError`
-    unless the trace is whole: each name that one call puts on the card
-    ran exactly ``calls`` times as often, and nothing else ran."""
+    in ms, by record name, from a trace of the spin kernels alone
+    (``spins``, which names them) and of one call (``one``), all by name
+    as :func:`_trace` gives them; the spins themselves are left out.
+    Raises :class:`TimingError` unless the trace is whole: each name that
+    one call puts on the card ran exactly ``calls`` times as often, and
+    nothing else ran."""
     def count(d):
         return {n: len(v) for n, v in d.items() if n not in spins}
 
@@ -123,25 +124,40 @@ def whole_trace_ms(spins: dict, one: dict, many: dict, calls: int) -> float:
     if count(many) != want:
         raise TimingError(f"trace of {calls} calls is not whole: "
                           f"{count(many)} against {want}")
-    return sum(sum(d) for n, d in many.items() if n not in spins) / 1e3 / calls
+    return {n: sum(many[n]) / 1e3 / calls for n in per_call}
 
 
-def device_ms(fn, calls: int = 20, warmup: int = 3) -> float:
-    """The card's own time per ``fn()`` call, in ms: the summed durations
-    of the device work of ``calls`` back-to-back calls, from a whole
-    ``torch.profiler`` trace (:func:`whole_trace_ms`), so the host's
-    enqueue is not in it. A trace that is not whole is taken again, up to
-    :data:`TRIES` times; then :class:`TimingError`."""
+def device_split_ms(fn, calls: int = 20, warmup: int = 3) -> dict:
+    """The card's own time per ``fn()`` call, in ms, by record name (each
+    kernel, memset and copy that one call puts on the card): the summed
+    durations of the device work of ``calls`` back-to-back calls, from a
+    whole ``torch.profiler`` trace (:func:`trace_split_ms`), so the
+    host's enqueue is not in it. A trace that is not whole is taken
+    again, up to :data:`TRIES` times; then :class:`TimingError`."""
     for _ in range(warmup):
         fn()
     err = None
     for _ in range(TRIES):
         try:
-            return whole_trace_ms(_trace(None, 0), _trace(fn, 1),
+            return trace_split_ms(_trace(None, 0), _trace(fn, 1),
                                   _trace(fn, calls), calls)
         except TimingError as e:
             err = e
     raise TimingError(f"no whole trace in {TRIES} tries; last: {err}")
+
+
+def device_ms(fn, calls: int = 20, warmup: int = 3) -> float:
+    """The sum of :func:`device_split_ms`: the card's own time per
+    ``fn()`` call, in ms."""
+    return sum(device_split_ms(fn, calls, warmup).values())
+
+
+def short_name(name: str) -> str:
+    """A profiler record's name without its namespace and argument list
+    (``ns::kernel<true>(int*, ...)`` -> ``kernel<true>``)."""
+    name = name.replace("(anonymous namespace)::", "")
+    head = (name.split("(", 1)[0] or name).strip()
+    return head.removeprefix("void ").rsplit("::", 1)[-1]
 
 
 def queued_ms(fn, calls: int = 20, warmup: int = 3) -> float:
@@ -181,10 +197,12 @@ def measure(kernel, plain, library=None, nbytes: int = 0) -> dict:
     computes the same function, that call: the single-call CUDA-event
     windows of kernel and plain version, then the device-only times of
     all three in turns (kernel, library, plain, plain, library, kernel),
-    and the kernel's bound. Medians, in ms. Raises :class:`TimingError`
-    where the kernel's device-only time is below its bound or more than
-    :data:`QUEUED_SLACK` times its queued time (then work was missed or
-    the bound is wrong)."""
+    the kernel's device-only time split by record name (``split``: each
+    kernel, memset and copy of one call, by :func:`short_name`), and the
+    kernel's bound. Medians, in ms. Raises :class:`TimingError`, with
+    each trace's time, where the kernel's device-only time is below its
+    bound or more than :data:`QUEUED_SLACK` times its queued time (then
+    work was missed or the bound is wrong)."""
     single = {"kernel": [], "plain": []}
     runs = {"kernel": kernel, "plain": plain}
     for who in ("plain", "kernel", "kernel", "plain"):
@@ -192,12 +210,21 @@ def measure(kernel, plain, library=None, nbytes: int = 0) -> dict:
     if library is not None:
         runs["library"] = library
     dev = {who: [] for who in runs}
+    splits = []
     for who in ("kernel", "library", "plain", "plain", "library", "kernel"):
         if who in runs:
-            dev[who].append(device_ms(runs[who]))
+            split = device_split_ms(runs[who])
+            dev[who].append(sum(split.values()))
+            if who == "kernel":
+                splits.append(split)
     med = {who: statistics.median(v) for who, v in dev.items()}
+    split: dict = {}
+    for n in splits[0]:
+        k = short_name(n)
+        split[k] = split.get(k, 0.0) + statistics.median(s[n] for s in splits)
     out = {
         "ms": med["kernel"],
+        "split": split,
         "plain_ms": med["plain"],
         "library_ms": med.get("library"),
         "single_call_ms": statistics.median(single["kernel"]),
@@ -208,12 +235,13 @@ def measure(kernel, plain, library=None, nbytes: int = 0) -> dict:
         "bound_by": "bytes",
     }
     out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    traces = f"; its traces {dev['kernel']} ms, splits {splits}"
     if out["ms"] < out["bound_ms"]:
         raise TimingError(f"device-only {out['ms']:.4f} ms is below the "
-                          f"bound {out['bound_ms']:.4f} ms")
+                          f"bound {out['bound_ms']:.4f} ms{traces}")
     if out["ms"] > QUEUED_SLACK * out["queued_ms"]:
         raise TimingError(f"device-only {out['ms']:.4f} ms is above the "
-                          f"queued {out['queued_ms']:.4f} ms")
+                          f"queued {out['queued_ms']:.4f} ms{traces}")
     return out
 
 
@@ -227,7 +255,14 @@ def measured_line(name: str, m: dict, smi: str) -> str:
             f"{m['plain_ms']:.4f} ms device-only, "
             f"{m['plain_single_call_ms']:.4f} ms single call; library "
             f"call {lib}; {m['bytes']} bytes, bound {m['bound_ms']:.4f} ms "
-            f"at 3.35 TB/s, {100 * m['share_of_bound']:.1f}% of it")
+            f"at 3.35 TB/s, {100 * m['share_of_bound']:.1f}% of it; "
+            f"split {split_text(m['split'])}")
+
+
+def split_text(split: dict) -> str:
+    """``name ms, ...`` of a device-only split, largest first."""
+    return ", ".join(f"{n} {ms:.4f}" for n, ms in
+                     sorted(split.items(), key=lambda kv: -kv[1]))
 
 
 # ---------------------------------------------------------------------------
