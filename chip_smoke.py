@@ -64,8 +64,13 @@ failure:
      around them; then every probe's kernel against its plain version and
      the probe's numpy ``want`` at the probe's own shape (single-call
      times of both), P10 and P11 at ragged widths, single rows and row
-     counts off the row tile (``hopper_probe3.EDGE_SHAPES``), and every
-     probe at about 64 MiB per operand with its times (below).
+     counts off the row tile (``hopper_probe3.EDGE_SHAPES``), P4 and P8
+     at their edge shapes (``kernel_times.edge_cases``: step counts,
+     widths and offset orders; segment sizes and counts), each run twice
+     and required byte-equal, and every probe at about 64 MiB per
+     operand with its times (below). P4's and P8's kernels are held
+     against their plain versions over the whole output, uncovered rows
+     and segment tails included.
 
 A kernel's times (``tools.kernel_times.measure``): its device-only time
 (the work the card ran, from a whole ``torch.profiler`` trace of 20
@@ -865,11 +870,12 @@ def phase_cursor(gof, S_flag: int):
                 card=smi)
 
 
-def _probe_check(cases_k, cases_p, where):
-    """Kernel cases against the plain cases and both against ``want``."""
+def _probe_check(cases_k, cases_p, where, twice=False):
+    """Kernel cases against the plain cases and both against ``want``
+    (``kernel_times.mismatches``)."""
     from tpu_vpcc_torch.tools.kernel_times import mismatches
 
-    bad = mismatches(cases_k, cases_p, where)
+    bad = mismatches(cases_k, cases_p, where, twice)
     check(not bad, "; ".join(bad))
     for k in cases_k:
         print(f"{k.name} ({where}): kernel OK, plain OK, equal")
@@ -878,9 +884,9 @@ def _probe_check(cases_k, cases_p, where):
 def phase_probes():
     """The three probe tools through their entry points, counted; every
     probe against its plain version and its ``want`` at the probe's shape,
-    P10 and P11 at their edge shapes, and every probe at about 64 MiB per
-    operand with its device-only times. Returns the probes' kernels
-    entries."""
+    P10 and P11, P4 and P8 at their edge shapes, and every probe at about
+    64 MiB per operand with its device-only times. Returns the probes'
+    kernels entries."""
     import torch
 
     from tpu_vpcc_torch.ops import probes
@@ -889,6 +895,7 @@ def phase_probes():
     from tpu_vpcc_torch.tools import hopper_probe3 as H3
     from tpu_vpcc_torch.tools.kernel_times import (
         NO_LIBRARY,
+        edge_cases,
         event_ms,
         measured_line,
         nvidia_smi_line,
@@ -925,6 +932,11 @@ def phase_probes():
             cases_p = fn(dev, probes.plain, R=R, L=L)
             torch.cuda.synchronize()
             _probe_check(cases_k, cases_p, f"R={R} L={L}")
+    for where, fn in edge_cases():
+        cases_k = fn(dev, probes.call)
+        cases_p = fn(dev, probes.plain)
+        torch.cuda.synchronize()
+        _probe_check(cases_k, cases_p, where, twice=True)
     big = {}
     for probe in probes.PROBES:
         try:

@@ -260,6 +260,93 @@ def test_p8_segments_compact_independently():
     assert c.got.size > 3 * 2048
 
 
+#: P4's and P8's edge shapes, shared with the card's checks, by label
+_EDGES = dict(KT.edge_cases())
+_P8_EDGES = sorted(w for w in _EDGES if w.startswith("seg_"))
+_P4_EDGES = sorted(w for w in _EDGES if w.startswith("nstep"))
+
+
+def _halves(words):
+    """u32 words as their u16 stream: slot 2w the low half of word w,
+    slot 2w + 1 the high half."""
+    w = np.asarray(words, np.uint32).reshape(-1)
+    return np.stack([w & 0xFFFF, w >> 16], axis=-1).reshape(-1)
+
+
+@pytest.mark.parametrize("where", _P8_EDGES)
+def test_p8_plain_whole_segments(where):
+    """P8's plain version over whole segments, tails included, against
+    the rule stated in numpy: copy every slot's value, then write each
+    moving slot's value to slot - shift, inside its own segment."""
+    seg_words, n_seg = (int(t.split("=")[1]) for t in where.split())
+    alo, ahi, shc, want = H2.mini_compact_inputs(1, seg_words, n_seg)
+    values = _halves(alo) | (_halves(ahi) << 16)
+    s = _halves(shc).astype(np.int64)
+    moving = np.flatnonzero(s)
+    dest = moving - s[moving]
+    n = 2 * seg_words
+    assert np.array_equal(dest // n, moving // n)  # shifts stay inside
+    assert np.unique(dest).size == dest.size  # and never collide
+    rule = values.copy()
+    rule[dest] = values[moving]
+    args = [torch.from_numpy(a.view(np.int32)) for a in (alo, ahi, shc)]
+    got = probes.plain("P8", *args, seg_words)
+    assert got.shape == (n_seg, n)
+    got = got.numpy().view(np.uint32).reshape(-1)
+    np.testing.assert_array_equal(got, rule)
+    for seg, w in zip(got.reshape(n_seg, n), want):
+        np.testing.assert_array_equal(seg[: w.size], w)
+
+
+def _p4_rule(x, offs, out_rows):
+    """P4 stated row by row: each output row holds the row of the last
+    step that covers it, plus 1000 * step, or zeros."""
+    x, offs = np.asarray(x), np.asarray(offs, np.int64)
+    r = np.arange(out_rows)[:, None]
+    covers = (offs <= r) & (r < offs + x.shape[1])
+    owner = np.where(covers.any(1),
+                     x.shape[0] - 1 - np.argmax(covers[:, ::-1], 1), -1)
+    out = np.zeros((out_rows, x.shape[2]), np.int32)
+    hit = owner >= 0
+    own = owner[hit]
+    out[hit] = x[own, np.flatnonzero(hit) - offs[own]] + 1000 * own[:, None]
+    return out, hit
+
+
+#: P4 at hand-made offsets: (offs, step rows, L)
+_P4_CASES = {
+    "unsorted": ([5, 0, 3, 1], 2, 4),
+    "gap": ([0, 6], 2, 4),
+    "repeated": ([2, 2, 0, 2], 3, 4),
+    "ragged-L5": ([0, 1, 3], 2, 5),
+}
+
+
+@pytest.mark.parametrize("where", sorted(_P4_CASES) + _P4_EDGES)
+def test_p4_plain_every_row(where):
+    """P4's plain version over every output row, uncovered ones included,
+    against the rule stated row by row: unsorted offsets, a gap no step
+    covers (zeros), repeated offsets (the later step wins), widths that
+    are no multiple of four, and the edge shapes the card checks."""
+    if where in _P4_CASES:
+        offs, rows, L = _P4_CASES[where]
+        x = np.arange(len(offs) * rows * L, dtype=np.int32).reshape(
+            len(offs), rows, L)
+        out_rows = max(offs) + rows + 2
+        args = (torch.from_numpy(x), torch.tensor(offs, dtype=torch.int32),
+                out_rows)
+    else:
+        args = _EDGES[where]("cpu", probes.plain)[0].args
+    got = probes.plain("P4", *args).numpy()
+    want, covered = _p4_rule(args[0].numpy(), args[1].numpy(), args[2])
+    np.testing.assert_array_equal(got, want)
+    assert not covered[-2:].any()  # two rows past the last step: zeros
+    if where == "gap":
+        assert not covered[2:6].any() and covered[:2].all()
+    if where == "repeated":  # step 3 wins rows 2-4 over steps 0 and 1
+        np.testing.assert_array_equal(got[2:5], args[0][3].numpy() + 3000)
+
+
 def test_tools_run_on_cpu_and_stay_jax_free():
     """The four tool entry points with ``--device cpu`` (the experiment at
     256²): exit 0, the report and JSON lines, and no jax or tpu_vpcc in the
@@ -331,6 +418,25 @@ def test_kernels_match_plain_on_card(tool):
     for k, p in zip(kernel, plain):
         np.testing.assert_array_equal(k.got, k.want)
         np.testing.assert_array_equal(k.got, p.got)
+    # P4 and P8 also over the whole output
+    assert not KT.mismatches(kernel, plain, "probe shape")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", sorted(_EDGES))
+def test_p4_p8_edge_shapes_on_card(where):
+    """P4 and P8 at their edge shapes: the kernel's whole output equal to
+    the plain version's, and to a second call's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (on the card: pytest -m cuda)")
+    fn = _EDGES[where]
+    probe = "P4" if where.startswith("nstep") else "P8"
+    before = probes.launches[probe]
+    kernel = fn("cuda", probes.call)
+    torch.cuda.synchronize()
+    assert probes.launches[probe] == before + 1
+    plain = fn("cuda", probes.plain)
+    assert not KT.mismatches(kernel, plain, where, twice=True)
 
 
 @pytest.mark.cuda

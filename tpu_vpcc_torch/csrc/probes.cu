@@ -17,14 +17,15 @@
 //            pair (probe_interleave).
 //   P4       overlapping writes of (rows, L) steps at row offsets read from
 //            a device array, applied in step order: each output row takes
-//            the last step that covers it, so blocks need no order
-//            (probe_dyn_write).
+//            the last step that covers it, or zeros, so blocks need no
+//            order and every output row is written once (probe_dyn_write).
 //   P5       u32 -> little-endian u16 pairs and back: on the card a
 //            reinterpretation, so the kernel is a 16-byte-vector copy
 //            (probe_reinterpret).
-//   P8       the 13-stage log-shift compaction network of
-//            tools/pallas_probe2.py on u16 streams held in shared memory,
-//            one block per segment of up to 4,096 slots (probe_mini_compact).
+//   P8       each u16-stream slot moved down by its own shift and joined
+//            with its high half into a u32, in one pass through shared
+//            memory, one block per segment of up to 4,096 slots
+//            (probe_mini_compact).
 //   P10      tile-concat out[r, c] = a[r, c mod L], which is what
 //            pltpu.repeat(x, 2, axis=1) computes (tools/pallas_probe3.py:63;
 //            probe_tile_concat).
@@ -45,6 +46,47 @@
 // registers and P10 stores each vector it reads twice; the grid covers
 // every row tile, so all 132 SMs fill. Widths that are not a multiple of
 // four take the scalar path of the same kernels.
+//
+// P8 replaces tools/pallas_probe2.py::probe_mini_compact (kernel kern,
+// pallas_call at :190), which ran a 13-stage log-shift network because
+// Mosaic had no scatter. At 64 MiB per operand it must read three 64 MiB
+// streams and write 128 MiB (0.100 ms at 3.35 TB/s); the network's 26
+// barriers and 13 rounds of shared-memory traffic a segment, and its
+// 2-byte accesses, held it to a fifth of that. The card scatters, so the
+// kernel computes the function itself: per segment, 16-byte streaming
+// loads of the three streams, the u32 slot values (lo | hi << 16) and
+// shifts joined in registers, every slot stored to its own place in a
+// shared-memory copy of the segment, one barrier, every moving slot
+// (shift s > 0) stored to p - s, one barrier, and the segment written
+// with 16-byte streaming stores: two barriers in place of 26, nothing
+// per stage. One 256-thread block per segment (16 slots a thread, 16 KB
+// of shared memory); at 46-48 registers a thread five blocks fit on an
+// SM, so the 8,192 segments of the 64 MiB shape fill all 132 SMs for
+// some twelve waves. Segments of
+// a word count that is no multiple of four do not start on 16 bytes and
+// take the scalar path of the same kernel. Preconditions (the compaction
+// shifts of tools/hopper_probe2.py::mini_compact_inputs meet them): a
+// shift stays inside its segment, and no two moving slots share a
+// destination; a slot whose destination would leave the segment is
+// skipped, colliding slots leave either value.
+//
+// P4 replaces tools/pallas_probe.py::probe_dyn_dma (kernel at :172,
+// pallas_call at :192), whose sequential grid applied each step's DMA in
+// turn. It must read the winning step's row for each covered output row
+// and write every output row once (0.021 ms at its 64 MiB shape, 256
+// steps of 512 x 128 int32). A block of 8 warps stages the offsets in
+// shared memory once (up to kOffsCap of them; more are read from device
+// memory); each warp takes one output row at a time and finds its owner,
+// the last step that covers it, by comparing 32 offsets at once from the
+// top down with one ballot (unsorted offsets need no special case), then
+// its lanes move the owner's row in 16-byte read-only loads and streaming
+// stores, four rows in flight, adding 1000 * owner; a row that no step
+// covers is stored as zeros in the same pass, so the output needs no fill
+// first. Threads run along the row's columns and blocks along row tiles,
+// so nothing is divided; widths that are no multiple of four take the
+// scalar path. The wrapper range-checks the offsets (ops/probes.py); the
+// kernel reads only rows of the step that covers the output row, so an
+// offset out of range cannot make it read outside x.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,8 +96,11 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTileElems = 8192;     // int32 elements of a roll tile (32 KB)
 constexpr int kMaxSlots = 4096;      // P8 slots per segment
-constexpr int kCompactThreads = 512;
+constexpr int kCompactThreads = 256;
 constexpr int kSlotsPerThread = kMaxSlots / kCompactThreads;
+constexpr int kOffsCap = 4096;       // P4 offsets staged in shared memory
+constexpr int kRowWarps = kThreads / 32;
+constexpr int kRowsInFlight = 4;     // rows a P4, P10 or P11 thread moves at once
 
 unsigned grid_for(int64_t n) {
   int64_t b = (n + kThreads - 1) / kThreads;
@@ -139,39 +184,96 @@ interleave16_kernel(const uint16_t* __restrict__ a,
   }
 }
 
-// One block per tile of rows_per_block output rows: one thread per row
-// finds the last step covering it (scanning the offsets backwards), then
-// the block copies that step's row, plus the probe's 1000 * step marker.
+// P4: the last step whose rows [off, off + step_rows) cover row r, or -1,
+// the same in every lane of the warp: lane l checks step top - l, and
+// the lowest lane that covers r holds the highest step.
+__device__ __forceinline__ int last_owner(const int32_t* off, int nstep,
+                                          int step_rows, int64_t r,
+                                          int lane) {
+  for (int top = nstep - 1; top >= 0; top -= 32) {
+    const int i = top - lane;
+    bool covers = false;
+    if (i >= 0) {
+      const int64_t o = off[i];
+      covers = o <= r && r < o + step_rows;
+    }
+    const unsigned hit = __ballot_sync(0xffffffffu, covers);
+    if (hit) return top - (__ffs(hit) - 1);
+  }
+  return -1;
+}
+
+__device__ __forceinline__ int32_t marked(int32_t v, unsigned m) {
+  return static_cast<int32_t>(static_cast<unsigned>(v) + m);
+}
+
+// P4, block (32, kRowWarps): warp threadIdx.y takes output rows
+// kRowWarps apart, kRowsInFlight at once; lane threadIdx.x takes column
+// blockIdx.x * 32 + threadIdx.x of each (a 16-byte vector of four int32
+// where L % 4 == 0, else one element).
 __global__ void __launch_bounds__(kThreads)
 dyn_write_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ offs,
                  int32_t* __restrict__ out, int nstep, int step_rows, int L,
-                 int64_t out_rows, int rows_per_block) {
-  __shared__ int owner[kThreads];
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * rows_per_block;
-  const int64_t rows_left = out_rows - r0;
-  const int rows = rows_left < rows_per_block ? static_cast<int>(rows_left)
-                                              : rows_per_block;
-  if (threadIdx.x < rows) {
-    const int64_t r = r0 + threadIdx.x;
-    int o = -1;
-    for (int i = nstep - 1; i >= 0; --i) {
-      const int64_t off = offs[i];
-      if (off <= r && r < off + step_rows) {
-        o = i;
-        break;
+                 int64_t out_rows, bool vec) {
+  extern __shared__ int32_t offs_s[];
+  const bool staged = nstep <= kOffsCap;
+  if (staged) {
+    for (int i = threadIdx.y * 32 + threadIdx.x; i < nstep; i += kThreads) {
+      offs_s[i] = __ldg(offs + i);
+    }
+    __syncthreads();
+  }
+  const int32_t* off = staged ? offs_s : offs;
+  const int cols = vec ? L / 4 : L;
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  const int64_t tile = static_cast<int64_t>(kRowWarps) * kRowsInFlight;
+  for (int64_t r0 = static_cast<int64_t>(blockIdx.y) * tile + threadIdx.y;
+       r0 < out_rows; r0 += static_cast<int64_t>(gridDim.y) * tile) {
+    int own[kRowsInFlight];
+    int64_t src[kRowsInFlight];  // the owner's row in x, as (nstep * step_rows) rows
+#pragma unroll
+    for (int u = 0; u < kRowsInFlight; ++u) {
+      const int64_t r = r0 + u * kRowWarps;
+      own[u] = r < out_rows ? last_owner(off, nstep, step_rows, r, threadIdx.x)
+                            : -1;
+      src[u] = own[u] < 0 ? 0
+                          : static_cast<int64_t>(own[u]) * step_rows +
+                                (r - off[own[u]]);
+    }
+    if (c >= cols) continue;
+    if (vec) {
+      const int4* xs = reinterpret_cast<const int4*>(x);
+      int4* dst = reinterpret_cast<int4*>(out);
+      int4 v[kRowsInFlight];
+#pragma unroll
+      for (int u = 0; u < kRowsInFlight; ++u) {
+        v[u] = own[u] < 0 ? make_int4(0, 0, 0, 0) : __ldg(xs + src[u] * cols + c);
+      }
+#pragma unroll
+      for (int u = 0; u < kRowsInFlight; ++u) {
+        const int64_t r = r0 + u * kRowWarps;
+        if (r >= out_rows) continue;
+        if (own[u] >= 0) {
+          const unsigned m = 1000u * static_cast<unsigned>(own[u]);
+          v[u] = make_int4(marked(v[u].x, m), marked(v[u].y, m),
+                           marked(v[u].z, m), marked(v[u].w, m));
+        }
+        __stcs(dst + r * cols + c, v[u]);
+      }
+    } else {
+      int32_t v[kRowsInFlight];
+#pragma unroll
+      for (int u = 0; u < kRowsInFlight; ++u) {
+        v[u] = own[u] < 0 ? 0 : __ldg(x + src[u] * L + c);
+      }
+#pragma unroll
+      for (int u = 0; u < kRowsInFlight; ++u) {
+        const int64_t r = r0 + u * kRowWarps;
+        if (r >= out_rows) continue;
+        if (own[u] >= 0) v[u] = marked(v[u], 1000u * static_cast<unsigned>(own[u]));
+        __stcs(out + r * L + c, v[u]);
       }
     }
-    owner[threadIdx.x] = o;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < rows * L; e += kThreads) {
-    const int rr = e / L;
-    const int c = e - rr * L;
-    const int i = owner[rr];
-    if (i < 0) continue;
-    const int64_t r = r0 + rr;
-    const int64_t src = (static_cast<int64_t>(i) * step_rows + (r - offs[i])) * L;
-    out[r * L + c] = x[src + c] + 1000 * i;
   }
 }
 
@@ -195,56 +297,92 @@ copy4_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
   }
 }
 
-// One block per segment of n = 2 * seg_words u16 slots. lo, hi and s are
-// the segment's three u32 word arrays read as little-endian u16 streams
-// (the reinterpretation P5 probes). Stage b moves every slot whose shift
-// has bit b set down by 2^b; it reads the old streams into registers,
-// then writes the new ones, so each stage sees the previous one whole.
+// P8: W consecutive u32 words at p (16-byte aligned where W is 4), read
+// once, so streamed past the caches.
+template <int W>
+__device__ __forceinline__ void load_words(const uint32_t* p, uint32_t (&w)[W]) {
+  if constexpr (W == 4) {
+    const uint4 a = __ldcs(reinterpret_cast<const uint4*>(p));
+    w[0] = a.x;
+    w[1] = a.y;
+    w[2] = a.z;
+    w[3] = a.w;
+  } else {
+    w[0] = __ldcs(p);
+  }
+}
+
+// P8, one block per segment of n = 2 * seg_words slots: stream slot 2w
+// is the low half of word w, slot 2w + 1 its high half (the
+// little-endian reinterpretation P5 probes). A thread loads word groups
+// g = threadIdx.x + k * kCompactThreads of W words (W = 4 on the vector
+// path, seg_words % 4 == 0; else 1), so it holds slots 2W g .. 2W g +
+// 2W - 1 of each group in registers (kSlotsPerThread in all) between the
+// copy and the scatter.
+template <bool Vec>
 __global__ void __launch_bounds__(kCompactThreads)
-mini_compact_kernel(const uint16_t* __restrict__ lo_in,
-                    const uint16_t* __restrict__ hi_in,
-                    const uint16_t* __restrict__ s_in,
-                    uint32_t* __restrict__ out, int n, int nb) {
-  __shared__ uint16_t lo[kMaxSlots];
-  __shared__ uint16_t hi[kMaxSlots];
-  __shared__ uint16_t sh[kMaxSlots];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * n;
-  for (int p = threadIdx.x; p < n; p += kCompactThreads) {
-    lo[p] = lo_in[base + p];
-    hi[p] = hi_in[base + p];
-    sh[p] = s_in[base + p];
+mini_compact_kernel(const uint32_t* __restrict__ alo,
+                    const uint32_t* __restrict__ ahi,
+                    const uint32_t* __restrict__ shc,
+                    uint32_t* __restrict__ out, int seg_words) {
+  constexpr int W = Vec ? 4 : 1;
+  constexpr int kGroups = kSlotsPerThread / (2 * W);
+  __shared__ __align__(16) uint32_t seg[kMaxSlots];
+  const int n = 2 * seg_words;
+  const int64_t in0 = static_cast<int64_t>(blockIdx.x) * seg_words;
+  uint32_t val[kSlotsPerThread], sh[kSlotsPerThread];
+#pragma unroll
+  for (int k = 0; k < kGroups; ++k) {
+    const int g = threadIdx.x + k * kCompactThreads;
+    uint32_t* v = val + k * 2 * W;
+    uint32_t* s = sh + k * 2 * W;
+    if (g * W >= seg_words) {
+#pragma unroll
+      for (int j = 0; j < 2 * W; ++j) s[j] = 0;
+      continue;
+    }
+    uint32_t lo[W], hi[W], sw[W];
+    load_words<W>(alo + in0 + g * W, lo);
+    load_words<W>(ahi + in0 + g * W, hi);
+    load_words<W>(shc + in0 + g * W, sw);
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      v[2 * w] = (lo[w] & 0xFFFFu) | (hi[w] << 16);
+      v[2 * w + 1] = (lo[w] >> 16) | (hi[w] & 0xFFFF0000u);
+      s[2 * w] = sw[w] & 0xFFFFu;
+      s[2 * w + 1] = sw[w] >> 16;
+    }
+    if constexpr (Vec) {
+      uint4* dst = reinterpret_cast<uint4*>(seg + 2 * W * g);
+      dst[0] = make_uint4(v[0], v[1], v[2], v[3]);
+      dst[1] = make_uint4(v[4], v[5], v[6], v[7]);
+    } else {
+      *reinterpret_cast<uint2*>(seg + 2 * g) = make_uint2(v[0], v[1]);
+    }
   }
   __syncthreads();
-  for (int b = 0; b < nb; ++b) {
-    const int k = static_cast<int>((1ll << b) % n);
-    uint16_t nlo[kSlotsPerThread], nhi[kSlotsPerThread], ns[kSlotsPerThread];
 #pragma unroll
-    for (int j = 0; j < kSlotsPerThread; ++j) {
-      const int p = threadIdx.x + j * kCompactThreads;
-      if (p >= n) break;
-      int q = p + k;
-      if (q >= n) q -= n;
-      const uint16_t s_q = sh[q];
-      const bool move_in = (s_q >> b) & 1;
-      const bool self_mv = (sh[p] >> b) & 1;
-      nlo[j] = move_in ? lo[q] : lo[p];
-      nhi[j] = move_in ? hi[q] : hi[p];
-      ns[j] = move_in ? s_q : (self_mv ? static_cast<uint16_t>(0) : sh[p]);
-    }
-    __syncthreads();
+  for (int k = 0; k < kGroups; ++k) {
+    const int p0 = 2 * W * (threadIdx.x + k * kCompactThreads);
 #pragma unroll
-    for (int j = 0; j < kSlotsPerThread; ++j) {
-      const int p = threadIdx.x + j * kCompactThreads;
-      if (p >= n) break;
-      lo[p] = nlo[j];
-      hi[p] = nhi[j];
-      sh[p] = ns[j];
+    for (int j = 0; j < 2 * W; ++j) {
+      const uint32_t s = sh[k * 2 * W + j];
+      if (s != 0 && s <= static_cast<uint32_t>(p0 + j)) {
+        seg[p0 + j - static_cast<int>(s)] = val[k * 2 * W + j];
+      }
     }
-    __syncthreads();
   }
-  for (int p = threadIdx.x; p < n; p += kCompactThreads) {
-    out[base + p] = static_cast<uint32_t>(lo[p]) |
-                    (static_cast<uint32_t>(hi[p]) << 16);
+  __syncthreads();
+  if constexpr (Vec) {
+    const uint4* src = reinterpret_cast<const uint4*>(seg);
+    uint4* dst = reinterpret_cast<uint4*>(out + 2 * in0);
+    for (int i = threadIdx.x; i < n / 4; i += kCompactThreads) {
+      __stcs(dst + i, src[i]);
+    }
+  } else {
+    for (int p = threadIdx.x; p < n; p += kCompactThreads) {
+      __stcs(out + 2 * in0 + p, seg[p]);
+    }
   }
 }
 
@@ -254,8 +392,6 @@ mini_compact_kernel(const uint16_t* __restrict__ lo_in,
 // is divided. The vector path needs L % 4 == 0 (every row then starts on
 // 16 bytes, the base being 16-byte aligned); other widths take the
 // scalar path of the same kernel.
-constexpr int kRowsInFlight = 4;
-
 struct RowTiles {
   dim3 grid, block;
 };
@@ -432,21 +568,25 @@ int probe_interleave(const void* a, const void* b, void* out, int64_t n,
   return done();
 }
 
-// P4. x: (nstep, step_rows, L) int32; offs: nstep device int32 row
-// offsets, each in [0, out_rows - step_rows]; out: (out_rows, L) int32,
-// whose rows no step covers are left as they are.
+// P4. x: (nstep, step_rows, L) int32 and out: (out_rows, L) int32, both
+// 16-byte aligned; offs: nstep device int32 row offsets, each in
+// [0, out_rows - step_rows] (the caller checks). Every row of out is
+// written: the last step that covers it, plus 1000 * step, or zeros.
 int probe_dyn_write(const void* x, const void* offs, void* out, int nstep,
                     int step_rows, int L, int64_t out_rows, void* stream) {
   if (nstep < 1 || step_rows < 1 || L < 1 || out_rows < 1) return invalid();
-  int rows_per_block = kTileElems / L;
-  if (rows_per_block > kThreads) rows_per_block = kThreads;
-  if (rows_per_block < 1) rows_per_block = 1;
-  const int64_t blocks = (out_rows + rows_per_block - 1) / rows_per_block;
-  dyn_write_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+  const bool vec = L % 4 == 0;
+  const int cols = vec ? L / 4 : L;
+  const int64_t tile = static_cast<int64_t>(kRowWarps) * kRowsInFlight;
+  int64_t gy = (out_rows + tile - 1) / tile;
+  if (gy > 65535) gy = 65535;  // the row-stride loop takes the rest
+  const size_t smem = nstep <= kOffsCap ? nstep * sizeof(int32_t) : 0;
+  dyn_write_kernel<<<dim3(static_cast<unsigned>((cols + 31) / 32),
+                          static_cast<unsigned>(gy)),
+                     dim3(32, kRowWarps), smem,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(x), static_cast<const int32_t*>(offs),
-      static_cast<int32_t*>(out), nstep, step_rows, L, out_rows,
-      rows_per_block);
+      static_cast<int32_t*>(out), nstep, step_rows, L, out_rows, vec);
   return done();
 }
 
@@ -472,19 +612,28 @@ int probe_reinterpret(const void* src, void* dst, int64_t nbytes,
 
 // P8. alo, ahi, shc: n_seg segments of seg_words u32 words each, read as
 // u16 streams of 2 * seg_words <= 4096 slots; out: n_seg * 2 * seg_words
-// u32, the value lo | hi << 16 of every stream slot after nb stages.
+// u32. All four 16-byte aligned. Every slot p of a segment keeps its
+// value lo | hi << 16, and then each slot with shift s > 0 puts it at
+// p - s of the same segment (shifts stay inside it and never collide).
 int probe_mini_compact(const void* alo, const void* ahi, const void* shc,
-                       void* out, int64_t n_seg, int seg_words, int nb,
-                       void* stream) {
-  if (n_seg < 1 || seg_words < 1 || 2 * seg_words > kMaxSlots || nb < 0 ||
-      nb > 16 || n_seg > 0x7fffffffLL) {
+                       void* out, int64_t n_seg, int seg_words, void* stream) {
+  if (n_seg < 1 || seg_words < 1 || 2 * seg_words > kMaxSlots ||
+      n_seg > 0x7fffffffLL) {
     return invalid();
   }
-  mini_compact_kernel<<<static_cast<unsigned>(n_seg), kCompactThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(alo), static_cast<const uint16_t*>(ahi),
-      static_cast<const uint16_t*>(shc), static_cast<uint32_t*>(out),
-      2 * seg_words, nb);
+  const unsigned grid = static_cast<unsigned>(n_seg);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* lo = static_cast<const uint32_t*>(alo);
+  const uint32_t* hi = static_cast<const uint32_t*>(ahi);
+  const uint32_t* sh = static_cast<const uint32_t*>(shc);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  if (seg_words % 4 == 0) {
+    mini_compact_kernel<true><<<grid, kCompactThreads, 0, st>>>(lo, hi, sh, o,
+                                                               seg_words);
+  } else {
+    mini_compact_kernel<false><<<grid, kCompactThreads, 0, st>>>(lo, hi, sh, o,
+                                                                seg_words);
+  }
   return done();
 }
 

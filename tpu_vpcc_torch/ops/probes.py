@@ -12,11 +12,21 @@ Counterparts of the Pallas kernels of ``tools/pallas_probe.py`` (P1-P4),
        out[2i + 1] = b[i]
   P4   overlapping writes of (rows, L) steps at row offsets read from a
        device array, in step order (the last step wins), each step's
-       rows plus the probe's 1000 * step marker
+       rows plus the probe's 1000 * step marker, zeros where no step
+       writes. The kernel finds each output row's last step from the
+       offsets staged in shared memory and writes every row once, in
+       16-byte vectors; the wrapper range-checks the offsets (one
+       ``torch.aminmax``, one copy to the host)
   P5   int32 -> its little-endian int16 pairs, and back
   P6   P2 on u16 carried as int16
   P7   P1 with the shift read from a device tensor at run time
-  P8   the log-shift compaction network on u16 streams
+  P8   the shift compaction of ``tools/pallas_probe2.py`` on u16
+       streams: every slot keeps its value (lo | hi << 16), then each
+       slot with shift s > 0 moves it to slot - s. The kernel does that
+       in one pass a segment through shared memory, with 16-byte loads
+       and stores, in place of the TPU's log-shift network. Shifts stay
+       inside a segment and no two moving slots share a destination (the
+       compaction shifts of ``hopper_probe2.mini_compact_inputs``)
   P9   P3 (the reference's minor-dim reshape)
   P10  tile-concat: ``torch.cat([a, a], 1)``, what ``pltpu.repeat(x, 2,
        axis=1)`` computes
@@ -38,8 +48,9 @@ import torch
 from . import _build
 
 PROBES = tuple(f"P{i}" for i in range(1, 13))
-#: P8's stages: its shifts are below 2^13 (the probe's NB)
-MINI_COMPACT_STAGES = 13
+#: P4's steps whose offsets a block of the kernel stages in shared memory
+#: (``kOffsCap`` in ``csrc/probes.cu``); it reads more from device memory
+DYN_WRITE_STAGED_STEPS = 4096
 #: the probe libraries of the kernel table, by the probes each holds
 LIBRARIES = {
     "hopper_probe": ("P1", "P2", "P3", "P4"),
@@ -98,11 +109,11 @@ def _roll_dynamic_plain(x, shift):
 
 
 def _mini_compact_plain(alo, ahi, shc, seg_words):
-    """Each stream slot moves down by its shift (the network's result on
-    every slot it places), by boolean-mask selection of the moving slots;
-    a slot that does not move stays. The prefix up to each segment's
-    valid count is its compacted stream. Shifts stay inside a segment,
-    so ``seg_words`` only shapes the kernel's blocks."""
+    """Every stream slot keeps its value, then each slot with a shift
+    moves it down by that shift, by boolean-mask selection of the moving
+    slots. The prefix up to each segment's valid count is its compacted
+    stream. Shifts stay inside a segment, so ``seg_words`` only shapes
+    the kernel's blocks."""
     def u16(t):
         return t.view(torch.int16).reshape(-1).to(torch.int64) & 0xFFFF
 
@@ -156,7 +167,7 @@ def _load():
             "probe_interleave": [P, P, P, I64, I, P],
             "probe_dyn_write": [P, P, P, I, I, I, I64, P],
             "probe_reinterpret": [P, P, I64, P],
-            "probe_mini_compact": [P, P, P, P, I64, I, I, P],
+            "probe_mini_compact": [P, P, P, P, I64, I, P],
             "probe_tile_concat": [P, P, I64, I64, P],
             "probe_reverse_lanes": [P, P, I64, I64, P],
         }.items():
@@ -230,10 +241,12 @@ def _dyn_write_cuda(probe, x, offs, out_rows):
     if offs.dtype != torch.int32 or offs.shape != (x.shape[0],) \
             or offs.device != x.device:
         raise ValueError("offs: want (nstep,) int32 beside x")
-    lo, hi = int(offs.min()), int(offs.max())
+    span = torch.empty(2, dtype=torch.int32, device=x.device)
+    torch.aminmax(offs, dim=0, keepdim=True, out=(span[:1], span[1:]))
+    lo, hi = span.tolist()
     if lo < 0 or hi + x.shape[1] > out_rows:
         raise ValueError(f"offsets {lo}..{hi} leave the {out_rows} rows")
-    out = torch.zeros((out_rows, x.shape[2]), dtype=torch.int32,
+    out = torch.empty((out_rows, x.shape[2]), dtype=torch.int32,
                       device=x.device)
     _launch(probe, "probe_dyn_write", x.device, x.data_ptr(),
             offs.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
@@ -266,7 +279,7 @@ def _mini_compact_cuda(probe, alo, ahi, shc, seg_words):
                       device=alo.device)
     _launch(probe, "probe_mini_compact", alo.device, alo.data_ptr(),
             ahi.data_ptr(), shc.data_ptr(), out.data_ptr(),
-            alo.numel() // seg_words, seg_words, MINI_COMPACT_STAGES)
+            alo.numel() // seg_words, seg_words)
     return out
 
 

@@ -139,8 +139,31 @@ def probe_dyn_dma(device, run: Run = probes.call, nstep: int = 4,
                  want[covered])]
 
 
+def dyn_write_offsets(nstep: int, step_rows: int, in_order: bool,
+                      seed: int) -> np.ndarray:
+    """``nstep`` P4 offsets from 0, each the one before plus 0 to
+    ``step_rows + 1`` rows: repeated offsets, overlaps and rows that no
+    step covers; shuffled unless ``in_order``."""
+    r = np.random.default_rng(seed)
+    offs = np.concatenate(
+        [[0], np.cumsum(r.integers(0, step_rows + 2, nstep - 1))])
+    if not in_order:
+        r.shuffle(offs)
+    return offs.astype(np.int32)
+
+
 PROBE_FUNCTIONS = (probe_rolls, probe_flat_shift, probe_interleave,
                    probe_dyn_dma)
+#: (nstep, L, in order) of P4's edge shapes, each of DYN_WRITE_EDGE_ROWS-
+#: row steps at :func:`dyn_write_offsets`: one step, three, 256 (the
+#: 64 MiB shape's count) and one more than a block stages in shared
+#: memory; widths off the kernel's 16-byte path (1, 127) and on it
+#: (4, 128); offsets in order and shuffled
+DYN_WRITE_EDGES = tuple(
+    (n, L, in_order)
+    for n in (1, 3, 256, probes.DYN_WRITE_STAGED_STEPS + 1)
+    for L in (1, 4, 127, 128) for in_order in (True, False))
+DYN_WRITE_EDGE_ROWS = 3
 
 
 def run_all(device, run: Run = probes.call, functions=PROBE_FUNCTIONS):

@@ -10,10 +10,11 @@ numpy ``want``s:
       (R, 1024) shape; the Hopper kernel computes the probe's ``want``.
   P6  the flat shift-down on u16 (carried as int16), at 1,024 lanes
   P7  a lane roll by a shift read from device memory at run time
-  P8  the 13-stage log-shift compaction network of the probe on u16
-      streams in shared memory (2,048 pixels, 4,096 slots, three
-      streams). Mosaic could not lower the probe (``bitcast 1D``); the
-      Hopper kernel computes the probe's ``want``.
+  P8  the probe's shift compaction of u16 streams (2,048 pixels, 4,096
+      slots, three streams): each valid slot moved down by its own
+      shift, in one pass through shared memory where the probe ran a
+      13-stage log-shift network. Mosaic could not lower the probe
+      (``bitcast 1D``); the Hopper kernel computes the probe's ``want``.
 
     python -m tpu_vpcc_torch.tools.hopper_probe2 [--device cuda|cpu]
 """
@@ -122,6 +123,13 @@ def probe_mini_compact(device, run: Run = probes.call, R: int = 4,
 
 PROBE_FUNCTIONS = (probe_bitcast, probe_wide_u16, probe_dynamic_roll,
                    probe_mini_compact)
+#: (seg_words, n_seg) of P8's edge shapes, each segment one row of
+#: seg_words pixels: word counts that are no multiple of four (the
+#: kernel's scalar path: 1, 3, 2,047) and that are (4, and 2,048, a full
+#: 4,096-slot segment), in one, three and 133 segments (one block each,
+#: more blocks than the card's 132 SMs)
+MINI_COMPACT_EDGES = tuple((w, n) for w in (1, 3, 4, 2047, 2048)
+                           for n in (1, 3, 133))
 
 
 def main(argv=None) -> int:

@@ -353,9 +353,29 @@ def library_call(case):
     return None
 
 
-def mismatches(cases_k, cases_p, where: str):
-    """Kernel cases against the plain cases and both against ``want``: a
-    line per disagreement."""
+#: probes whose cases compare only part of the output (P8 each segment's
+#: prefix, P4 the covered rows): their kernels are also held against the
+#: plain version over the whole output
+WHOLE_OUTPUT = ("P4", "P8")
+
+
+def whole_output_mismatches(case, where: str, twice: bool = False):
+    """``case``'s probe on its arguments, the whole output of
+    :func:`probes.call` against :func:`probes.plain` and, with ``twice``,
+    against a second call: a line per disagreement."""
+    got = probes.call(case.probe, *case.args)
+    bad = []
+    if not torch.equal(got, probes.plain(case.probe, *case.args)):
+        bad.append(f"{case.name} ({where}): whole output differs from plain")
+    if twice and not torch.equal(got, probes.call(case.probe, *case.args)):
+        bad.append(f"{case.name} ({where}): two calls differ")
+    return bad
+
+
+def mismatches(cases_k, cases_p, where: str, twice: bool = False):
+    """Kernel cases against the plain cases and both against ``want``,
+    and the :data:`WHOLE_OUTPUT` probes over their whole output
+    (:func:`whole_output_mismatches`): a line per disagreement."""
     bad = []
     for k, p in zip(cases_k, cases_p):
         if not (k.got.shape == p.got.shape and np.array_equal(k.got, p.got)):
@@ -364,7 +384,28 @@ def mismatches(cases_k, cases_p, where: str):
             if not (c.got.shape == c.want.shape
                     and np.array_equal(c.got, c.want)):
                 bad.append(f"{c.name} ({where}): {who} differs from want")
+        if k.probe in WHOLE_OUTPUT:
+            bad += whole_output_mismatches(k, where, twice)
     return bad
+
+
+def edge_cases():
+    """P4's and P8's edge shapes (``hopper_probe.DYN_WRITE_EDGES``,
+    ``hopper_probe2.MINI_COMPACT_EDGES``) as ``(label, fn)`` pairs, each
+    ``fn(device, run)`` giving the shape's cases like a probe function."""
+    out = []
+    rows = H1.DYN_WRITE_EDGE_ROWS
+    for n, L, in_order in H1.DYN_WRITE_EDGES:
+        offs = H1.dyn_write_offsets(n, rows, in_order, seed=n)
+        label = f"nstep={n} L={L} {'in order' if in_order else 'shuffled'}"
+        out.append((label, lambda d, run, n=n, L=L, offs=offs:
+                    H1.probe_dyn_dma(d, run, nstep=n, step_rows=rows, L=L,
+                                     offs=offs)))
+    for w, n in H2.MINI_COMPACT_EDGES:
+        out.append((f"seg_words={w} n_seg={n}",
+                    lambda d, run, w=w, n=n:
+                    H2.probe_mini_compact(d, run, R=1, L=w, n_seg=n)))
+    return out
 
 
 def time_probe(probe: str, device) -> dict:
