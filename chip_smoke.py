@@ -47,6 +47,21 @@ failure:
      then the times of K2W and K1F (below), CUDA-event timings of the
      smoothing, the wide dispatch, the fetch and the host staging, and
      the Decoder's frames/s with one and two GOFs in flight;
+  5b. the gather fallback through ``Decoder.start_gofs``, two GOFs in
+     flight: GOF R (two 1280^2 frames, seeds 6-7, with a third of their
+     patches turned to rotated orientations), GOF W (phase 3's first
+     GOF's frames with 12-bit geometry: samples x4, geo_shift 4) and GOF
+     RS (GOF R with geometry and colour smoothing). Every frame
+     byte-equal to the numpy oracle, GOF W's also to phase 3's 10-bit
+     decode, the rotated patches' own points counted by a dispatch of
+     their groups alone, smoothing's effect on GOF RS, K1F's launch
+     counter advanced by exactly the gather dispatches and K1's and
+     K2W's not at all; the colour conversion on 16-bit samples equal on
+     the card and the CPU; then K1F's times at GOF R's dispatch shape
+     (below), CUDA-event timings of the slot math of each GOF, the
+     dispatch and the fetch, the host stage split, the Decoder's
+     frames/s with one and two GOFs in flight and the phase's peak
+     device memory;
   6. a committed fixture stream through ``Decoder`` on the card, whose
      PLY bytes must equal the port's oracle path. Not run, and said so,
      only when phase 1 found that the host video bridge cannot load;
@@ -743,6 +758,265 @@ def phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err):
     ]
 
 
+def phase_gather(fcfg, frame_sets, narrow_out):
+    """The gather fallback on the card through ``Decoder.start_gofs``
+    (GOFs R, W and RS, see the module note), the oracle, and the
+    timings; returns the kernels entry of K1F on the gather path."""
+    import numpy as np
+    import torch
+
+    from tpu_vpcc_torch.atlas import groups as G
+    from tpu_vpcc_torch.models.flagship import (
+        ATTR_SMOOTHING,
+        GEO_SMOOTHING,
+        ROTATED,
+        example_frames,
+        example_gof,
+    )
+    from tpu_vpcc_torch.ops import payload
+    from tpu_vpcc_torch.ops import shift_compact as sc
+    from tpu_vpcc_torch.ops.color import rgb8_from_yuv16
+    from tpu_vpcc_torch.ops.reconstruct import gather_words, reconstruct_batch
+    from tpu_vpcc_torch.ops.tiled import gather_inputs_to_device
+    from tpu_vpcc_torch.runtime import pipeline as P
+    from tpu_vpcc_torch.runtime.host import _reconstruct_gof_oracle
+    from tpu_vpcc_torch.tools.kernel_times import (
+        _trace,
+        event_ms,
+        measure,
+        measured_line,
+        nvidia_smi_line,
+        queued_ms,
+        short_name,
+    )
+    from tpu_vpcc_torch.utils.stats import GofStats
+
+    dev = torch.device("cuda")
+    smi = nvidia_smi_line()
+    smooth = dict(geo_smoothing=GEO_SMOOTHING, attr_smoothing=ATTR_SMOOTHING)
+    t0 = time.perf_counter()
+    frames_r = example_frames(fcfg, seed=6, rotated=1 / 3)
+    specs = {  # GOF: (frames, example_gof options)
+        "R": (frames_r, {}),
+        "W": (frame_sets[0], {"geometry_bits": 12}),
+        "RS": (frames_r, smooth),
+    }
+    gofs = [example_gof(fcfg, fr, **kw) for fr, kw in specs.values()]
+    rotated = [{i for i, p in enumerate(sf.meta.patches)
+                if p.patch_orientation in ROTATED} for sf in frames_r]
+    print(f"gather GOFs: R = frames of seeds 6-7 with "
+          f"{[len(r) for r in rotated]} of "
+          f"{[len(sf.meta.patches) for sf in frames_r]} patches turned to "
+          f"rotated orientations; W = phase 3's GOF 0 frames with 12-bit "
+          f"geometry (samples x4, geo_shift 4, not 10-bit packable); RS = "
+          f"GOF R with geometry smoothing {GEO_SMOOTHING} and colour "
+          f"smoothing {ATTR_SMOOTHING} (synthesised in "
+          f"{time.perf_counter() - t0:.2f} s)")
+    check(all(rotated), "a frame of GOF R has no rotated patch")
+
+    staged, dispatches = {}, 0
+    for name, g in zip(specs, gofs):
+        cfg, tables, g_bucket = P._gof_tables_and_bucket(g)
+        t0 = time.perf_counter()
+        staged[name] = P._gof_device_inputs(g, g.metas, (cfg, tables),
+                                            g_bucket)
+        stage_s = time.perf_counter() - t0
+        check(not staged[name].use_tiled,
+              f"GOF {name} would take a tiled path")
+        # one dispatch per chunk, trailing-layer pass and secondary twin
+        dispatches += (-(-len(g.metas) // P.DEVICE_BATCH)
+                       * (1 + max(0, g.map_count - 2))
+                       * (1 + len(g.sec_attrs)))
+        print(f"GOF {name}: gather fallback (tiled_ok "
+              f"{[t.tiled_ok for t in tables]}, packed10_ok "
+              f"{g.packed10_ok}, geo_shift {g.geo_shift}), {g_bucket} "
+              f"groups per frame, host staging {stage_s * 1e3:.1f} ms")
+
+    # the gather main path, counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sc.reset_launches()
+    payload.reset_launches()
+    t0 = time.perf_counter()
+    out = decode_gofs(gofs, depth=2)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {"K1F": sc.full_launches, "K1": sc.launches,
+                "K2W": payload.launches}
+    peak_run = torch.cuda.max_memory_allocated()
+    check(launches == {"K1F": dispatches, "K1": 0, "K2W": 0},
+          f"the gather main path launched {launches} for {dispatches} "
+          f"gather dispatches")
+    print(f"gather main path: Decoder.start_gofs, pipeline_gofs=2, "
+          f"{len(gofs)} GOFs, {len(out)} frames in {first_s:.3f} s (first "
+          f"run), {dispatches} gather dispatches, launches {launches}")
+
+    n_frames = sum(len(fr) for fr, _ in specs.values())
+    check(len(out) == n_frames, f"{len(out)} frames out for {n_frames} in")
+    k = 0
+    for name, (frames, kw) in specs.items():
+        t0 = time.perf_counter()
+        refs = list(_reconstruct_gof_oracle(
+            example_gof(fcfg, frames, tiled=False, **kw)))
+        ora_s = time.perf_counter() - t0
+        for f, ref in enumerate(refs):
+            ps = out[k]
+            same = (
+                ps.positions.shape == ref.positions.shape
+                and np.array_equal(ps.positions, ref.positions)
+                and np.array_equal(ps.colors, ref.colors)
+            )
+            check(same and len(ps) > 0,
+                  f"gather GOF {name} frame {f}: {len(ps)} points differ "
+                  f"from the oracle's {len(ref)}")
+            print(f"gather GOF {name} frame {f}: {len(ps)} points "
+                  f"byte-equal to the numpy oracle (oracle GOF "
+                  f"{ora_s:.1f} s)")
+            k += 1
+    n_r = len(frames_r)
+    for f in range(len(frame_sets[0])):
+        a, b = out[n_r + f], narrow_out[f]
+        check(np.array_equal(a.positions, b.positions)
+              and np.array_equal(a.colors, b.colors),
+              f"GOF W frame {f} differs from phase 3's 10-bit decode")
+    print("GOF W: each frame equal to phase 3's 10-bit decode of its "
+          "frames")
+    moved_pos = moved_col = 0
+    for f in range(n_r):
+        a, b = out[n_r + len(frame_sets[0]) + f], out[f]
+        check(a.positions.shape == b.positions.shape,
+              "smoothing changed a point count")
+        moved_pos += int((a.positions != b.positions).any(axis=1).sum())
+        moved_col += int((a.colors != b.colors).any(axis=1).sum())
+    check(moved_pos > 0 and moved_col > 0,
+          f"smoothing moved {moved_pos} positions and {moved_col} colours")
+    print(f"smoothing ran: GOF RS against GOF R, {moved_pos} positions and "
+          f"{moved_col} colours differ")
+
+    # the rotated patches' own points: a dispatch of their groups alone
+    # (each slot's validity depends on its own group only)
+    di = staged["R"]
+    fields = di.arrays[0].copy()
+    for f, rot in enumerate(rotated):
+        keep = np.isin(fields[f, :, G.G_PATCH], sorted(rot))
+        fields[f, :, G.G_VALID] *= keep
+    t = gather_inputs_to_device(fields, *di.arrays[1:], dev)
+    _, n_rot = reconstruct_batch(*t, di.cfg)
+    n_rot = n_rot.tolist()
+    check(min(n_rot) > 0, f"the rotated patches emit {n_rot} points")
+    print(f"GOF R: the rotated patches emit {n_rot} of "
+          f"{[len(out[f]) for f in range(n_r)]} points per frame")
+
+    # the colour conversion on samples up to 16 bits, card against CPU
+    gen = torch.Generator().manual_seed(16)
+    yuv = torch.randint(0, 1 << 16, (1 << 20, 3), generator=gen,
+                        dtype=torch.int32)
+    for j, bits in enumerate((10, 11, 12, 13)):
+        yuv[j << 16 : (j + 1) << 16] >>= 16 - bits
+    rgb_card = rgb8_from_yuv16(yuv.to(dev)).cpu()
+    check(torch.equal(rgb_card, rgb8_from_yuv16(yuv)),
+          "rgb8_from_yuv16 on the card differs from the CPU on 16-bit "
+          "samples")
+    print(f"rgb8_from_yuv16: {yuv.shape[0]} samples of 10-16 bits equal on "
+          f"the card and the CPU")
+
+    # timings at GOF R's dispatch shape (not counted)
+    t = gather_inputs_to_device(*di.arrays, dev)
+    w0, w1, w2, valid = gather_words(*t, di.cfg)
+    got, n_got = sc.shift_compact_full((w0, w1, w2), valid)
+    ref, n_ref = sc.shift_compact_full_reference((w0, w1, w2), valid)
+    torch.cuda.synchronize()
+    check(torch.equal(n_got, n_ref), "K1F counts differ on the gather path")
+    err = prefix_err(got, ref, n_ref.tolist())
+    check(err == 0, f"K1F differs from plain on the gather path ({err})")
+    F, S = valid.shape
+    print(f"gather dispatch shape (GOF R): F={F} groups={fields.shape[1]} "
+          f"S={S}, {int(valid.sum())} valid slots")
+    # K1F must read the validity once and each valid slot's three words,
+    # and write those words and the counts
+    k1f_bytes = valid.numel() + 2 * int(n_ref.sum()) * 12 + 4 * F
+    k1f = measure(lambda: sc._shift_compact_full_cuda((w0, w1, w2), valid),
+                  lambda: sc.shift_compact_full_reference((w0, w1, w2),
+                                                          valid),
+                  nbytes=k1f_bytes)
+    tensors = {name: gather_inputs_to_device(*d.arrays, dev)
+               for name, d in staged.items()}
+    runs = {
+        "slot math": lambda: gather_words(*t, di.cfg),
+        "dispatch": lambda: reconstruct_batch(*t, di.cfg),
+    }
+    ms = {name: [] for name in runs}
+    for name in ("slot math", "dispatch", "dispatch", "slot math"):
+        ms[name].append(event_ms(runs[name], reps=10))
+    med = {name: statistics.median(v) for name, v in ms.items()}
+    slot_ms = {name: event_ms(lambda name=name: gather_words(
+        *tensors[name], staged[name].cfg), reps=10) for name in staged}
+    t0 = time.perf_counter()
+    for _ in range(5):
+        gather_inputs_to_device(*di.arrays, dev)
+    torch.cuda.synchronize()
+    h2d_ms = (time.perf_counter() - t0) / 5 * 1e3
+    ops, counts_t = reconstruct_batch(*t, di.cfg)
+    counts = counts_t.cpu().numpy()
+    ms_fetch = event_ms(lambda: P._fetch_prefixes_packed(
+        ops, counts, color_mode="yuv10", layout="gather"), reps=10)
+    print(measured_line(f"K1F on the gather path at GOF R's dispatch shape, "
+                        f"{launches['K1F'] / len(gofs):g} launches per "
+                        f"two-frame GOF", k1f, smi))
+    print(f"gather timings (median CUDA events, {smi}): " + "; ".join(
+        f"{name} {med[name]:.4f} ms (runs {ms[name]})" for name in runs)
+        + f"; fetch {ms_fetch:.4f} ms; slot math per GOF "
+        + ", ".join(f"{n} {v:.4f} ms" for n, v in slot_ms.items())
+        + f"; H2D of the seven arrays (host clock) {h2d_ms:.2f} ms")
+    share = k1f["ms"] / med["dispatch"]
+    print(f"gather dispatch (GOF R): slot math {med['slot math']:.4f} ms, "
+          f"K1F {k1f['ms']:.4f} ms device-only = {share:.1%} of the "
+          f"dispatch's {med['dispatch']:.4f} ms ({smi})")
+    # what the slot math is made of: one call's device records (a
+    # single trace, not held whole) and its time queued behind a spin
+    spins = _trace(None, 0)
+    recs = {n: v for n, v in _trace(runs["slot math"], 1).items()
+            if n not in spins}
+    top = sorted(((sum(v) / 1e3, len(v), short_name(n))
+                  for n, v in recs.items()), reverse=True)
+    print(f"gather slot math (GOF R, one call's trace, {smi}): "
+          f"{sum(len(v) for v in recs.values())} device records, "
+          f"{sum(t[0] for t in top):.4f} ms of device time, queued "
+          f"{queued_ms(runs['slot math']):.4f} ms; largest: " + ", ".join(
+              f"{name} {ms:.4f} ms x{n}" for ms, n, name in top[:6]))
+
+    for name in ("R", "RS"):
+        g = gofs[list(specs).index(name)]
+        list(P._reconstruct_gof_device(g, dev))  # warm
+        reps = 3
+        stages = GofStats()
+        for _ in range(reps):
+            list(P._reconstruct_gof_device(g, dev, stats=stages))
+        print(f"gather device stage split (host clock, ms per GOF, GOF "
+              f"{name}): " + ", ".join(
+                  f"{k} {v * 1e3 / reps:.2f}"
+                  for k, v in sorted(stages.stage_seconds.items())))
+
+    stream = gofs * 2
+    dec_s = {1: [], 2: []}
+    for depth in (1, 2, 2, 1):
+        t0 = time.perf_counter()
+        n = len(decode_gofs(stream, depth))
+        dec_s[depth].append(time.perf_counter() - t0)
+        check(n == 2 * n_frames, f"Decoder emitted {n} frames")
+    print(f"gather Decoder.start_gofs (host clock, {len(stream)} GOFs R, W, "
+          f"RS twice, {2 * n_frames} frames, {smi}): " + "; ".join(
+              f"pipeline_gofs={d}: runs {[round(x, 4) for x in v]} s, "
+              f"{2 * n_frames / statistics.median(v):.1f} frames/s"
+              for d, v in dec_s.items()))
+    print(f"peak device memory of the gather phase: counted run "
+          f"{peak_run / 2 ** 20:.0f} MiB, with the timings "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
+    return dict(k1f, name="shift_compact_full (gather path)", route="cuda",
+                source=K1_SOURCE, replaces=K1F_REPLACES,
+                launches=launches["K1F"], max_abs_err=err)
+
+
 def phase_stream():
     from tpu_vpcc_torch.utils.ply import format_ply
     from tpu_vpcc_torch.ops import shift_compact as sc
@@ -985,6 +1259,7 @@ def main() -> int:
         k1, narrow_out = phase_flagship(frame_sets, gofs)
         k2w_err = phase_k2w(gofs[0])
         wide = phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err)
+        gather = phase_gather(fcfg, frame_sets, narrow_out)
         if bridge:
             phase_stream()
         else:
@@ -1002,7 +1277,7 @@ def main() -> int:
 
     smi = nvidia_smi_line()
     kernels = [dict(k, card=k.get("card", smi))
-               for k in [k1] + wide + [k3] + probe_kernels]
+               for k in [k1] + wide + [gather, k3] + probe_kernels]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

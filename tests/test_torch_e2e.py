@@ -3,7 +3,9 @@
 The PLY bytes of every frame must equal tpu_vpcc's device decode (JAX on
 the CPU) and the numpy oracle's. The port never imports jax: subprocesses
 decode through ``Decoder`` and ``python -m tpu_vpcc_torch.runtime.cli``
-(a plain and a smoothing stream) and then check ``sys.modules``.
+(a plain and a smoothing stream) and then check ``sys.modules``. Streams
+with rotated orientations, and prepared GOFs with rotated orientations or
+12-bit geometry, take the gather fallback.
 """
 import os
 import subprocess
@@ -14,7 +16,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from tpu_vpcc.atlas.patches import Patch
+from tpu_vpcc.atlas.patches import Patch, _check_orientation_in_range
 from tpu_vpcc.runtime import cli as ref_cli
 from tpu_vpcc.runtime.pipeline import Decoder as RefDecoder
 from tpu_vpcc.runtime.pipeline import Params as RefParams
@@ -22,6 +24,7 @@ from tpu_vpcc.utils.fixtures import build_fixture_stream
 from tpu_vpcc.utils.ply import format_ply
 from tpu_vpcc.utils.synthetic import make_synthetic_frame, plant_raw_patch
 from tpu_vpcc.v3c.syntax import PatchOrientation
+from tpu_vpcc.v3c.syntax import UnsupportedFeature as RefUnsupportedFeature
 from tpu_vpcc.video import encoder_supports
 from tpu_vpcc_torch.runtime import cli as port_cli
 from tpu_vpcc_torch.runtime.pipeline import Decoder, Params
@@ -153,6 +156,52 @@ def _stream_smoothing():
     )
 
 
+#: the orientations that leave block alignment at resolution > 1
+ROTATED = (PatchOrientation.ROT90, PatchOrientation.ROT180,
+           PatchOrientation.ROT270, PatchOrientation.MIRROR,
+           PatchOrientation.MROT90, PatchOrientation.MROT180)
+
+
+def _rotated(seed, n_frames=2, map_count=2):
+    """``_mk`` frames with every patch turned to a rotated orientation
+    that the reference's range gate admits (drawn from ``seed``; a patch
+    none fits keeps its own), the planes made anew for the turned
+    footprints."""
+    rng = np.random.default_rng(seed)
+    frames = []
+    for k, sf in enumerate(_mk(seed, n_frames, map_count=map_count)):
+        patches = []
+        for p in sf.meta.patches:
+            for o in rng.permutation(len(ROTATED)):
+                q = replace(p, patch_orientation=ROTATED[o])
+                try:
+                    _check_orientation_in_range(q, 64, 64)
+                except RefUnsupportedFeature:
+                    continue
+                p = q
+                break
+            patches.append(p)
+        frames.append(make_synthetic_frame(
+            rng, width=64, height=64, occupancy_resolution=8,
+            occupancy_precision=4, map_count=map_count, frame_index=k,
+            patches=patches,
+        ))
+    assert sum(p.patch_orientation in ROTATED
+               for sf in frames for p in sf.meta.patches) >= n_frames
+    return frames
+
+
+def _stream_rotated_smoothing_secondary():
+    """Rotated orientations with the smoothing SEIs for attribute 0 and
+    for a secondary texture: the primary and the twin pass both take the
+    gather fallback with smoothing."""
+    return build_fixture_stream(
+        _rotated(97), secondary_attrs=[(3, 1, None), (0, 3, None)],
+        geo_smoothing_sei=(8, 16),
+        attr_smoothing_sei=[(0, 8, 255, 1), (2, 8, 255, 1)],
+    )
+
+
 def _stream_vui():
     from tests.test_vui import rich_vui
 
@@ -180,11 +229,21 @@ STREAMS = {
     # the wide path's trailing-layer and secondary-attribute passes
     "proj45_three_maps": _stream_proj45_three_maps,
     "smoothing_secondary": _stream_smoothing_secondary,
+    # the gather fallback: its primary, trailing-layer and secondary
+    # passes
+    "rotated": lambda: build_fixture_stream(_rotated(83)),
+    "rotated_three_maps": lambda: build_fixture_stream(
+        _rotated(89, map_count=3), multi_map_streams=True),
+    "rotated_smoothing_secondary": _stream_rotated_smoothing_secondary,
 }
 
 SMOOTHING = dict(apply_geo_smoothing_type=True, apply_attr_smoothing_type=True)
 #: decoder options of a family (the reference's Params takes the same)
-STREAM_PARAMS = {"smoothing": SMOOTHING, "smoothing_secondary": SMOOTHING}
+STREAM_PARAMS = {"smoothing": SMOOTHING, "smoothing_secondary": SMOOTHING,
+                 "rotated_smoothing_secondary": SMOOTHING}
+#: families that carry a reflectance and a second texture
+SECONDARY = ("raw_eom_secondary", "smoothing_secondary",
+             "rotated_smoothing_secondary")
 
 
 def _decode(decoder_cls, params_cls, data, **kw):
@@ -203,7 +262,7 @@ def test_stream_matches_reference_and_oracle(name):
     oracle = _decode(RefDecoder, RefParams, data, use_device=False, **kw)
     port_oracle = _decode(Decoder, Params, data, use_device=False, **kw)
     assert len(got) >= 1
-    if name in ("raw_eom_secondary", "smoothing_secondary"):
+    if name in SECONDARY:
         header = got[0].split(b"end_header")[0]
         assert b"property ushort reflectance" in header
         assert b"property uchar red2" in header
@@ -304,8 +363,9 @@ print("JAX_FREE")
 
 @needs_encoder
 def test_non_tileable_orientation_raises():
-    """A ROT90 patch at resolution 16 has no block-aligned pixel tile:
-    it needs the gather fallback, not yet ported."""
+    """A ROT90 patch at resolution 16 has no block-aligned pixel tile: it
+    takes the gather fallback and decodes as tpu_vpcc and the oracle
+    decode it."""
     p = Patch(uv0=(2, 1), size_uv0=(2, 2), uv1=(10, 20),
               occupancy_resolution=16,
               patch_orientation=PatchOrientation.ROT90)
@@ -317,10 +377,236 @@ def test_non_tileable_orientation_raises():
         occupancy_resolution=16, occupancy_precision=4,
         patches=[replace(p)], frame_index=0,
     )
-    dec = Decoder(Params(build_fixture_stream([sf]), device="cpu"))
-    dec.start()
-    with pytest.raises(UnsupportedFeature, match="ROADMAP queue 1 #8"):
-        list(dec)
+    data = build_fixture_stream([sf])
+    got = _decode(Decoder, Params, data, device="cpu")
+    assert len(got) == 1 and b"element vertex 0" not in got[0]
+    assert got == _decode(RefDecoder, RefParams, data)
+    assert got == _decode(RefDecoder, RefParams, data, use_device=False)
+
+
+@needs_encoder
+def test_overlapping_rotated_patch_occupancy_gated():
+    """tests/test_orientations.py's full-bitstream ownership hazard
+    through the port: a ROT90 patch at resolution 16 overlapping a
+    DEFAULT patch, the ROT90 patch's own pixel set unoccupied, so the
+    DEFAULT patch keeps its block and emits."""
+    p0 = Patch(uv0=(3, 1), size_uv0=(1, 1), uv1=(40, 80),
+               occupancy_resolution=16,
+               patch_orientation=PatchOrientation.DEFAULT)
+    p0.set_view_id(0)
+    p0.d1 = 100
+    p0.size_d = 255
+    p1 = Patch(uv0=(2, 1), size_uv0=(2, 2), uv1=(10, 20),
+               occupancy_resolution=16,
+               patch_orientation=PatchOrientation.ROT90)
+    p1.set_view_id(1)
+    p1.d1 = 100
+    p1.size_d = 255
+    sf = make_synthetic_frame(
+        np.random.default_rng(13), width=64, height=64,
+        occupancy_resolution=16, occupancy_precision=4, patches=[p0, p1],
+    )
+    sf.occ_plane[:] = 0
+    sf.occ_plane[4:8, 12:16] = 1
+    data = build_fixture_stream([sf])
+    got = _decode(Decoder, Params, data, device="cpu")
+    assert len(got) == 1 and b"element vertex 0" not in got[0]
+    assert got == _decode(RefDecoder, RefParams, data)
+    assert got == _decode(RefDecoder, RefParams, data, use_device=False)
+
+
+def test_randomized_mixed_orientation_overlap_matches_oracle():
+    """tests/test_orientations.py's randomized frames mixing every
+    orientation the range gate admits, with overlapping footprints and
+    random occupancy (the occupancy-gated ownership), as twelve frames
+    of one gather dispatch of the port: equal to the numpy oracle and to
+    tpu_vpcc's gather kernel."""
+    from tpu_vpcc.atlas.groups import build_group_table
+    from tpu_vpcc.atlas.patches import FrameMeta
+    from tpu_vpcc.ops.reconstruct import make_config
+    from tpu_vpcc.ops.reconstruct import reconstruct_batch as ref_batch
+    from tpu_vpcc.reconstruction.oracle import (
+        GeneratePointCloudParams,
+        generate_point_cloud,
+    )
+    from tpu_vpcc_torch.ops import reconstruct as R
+    from tpu_vpcc_torch.ops import tiled as T
+
+    res, W, H, prec = 4, 32, 32, 2
+    bw, bh = W // res, H // res
+    rng = np.random.default_rng(23)
+    rows, want = [], []
+    for _trial in range(12):
+        patches = []
+        while len(patches) < 5:
+            p = Patch(
+                uv0=(int(rng.integers(0, bw)), int(rng.integers(0, bh))),
+                size_uv0=(int(rng.integers(1, 4)), int(rng.integers(1, 4))),
+                uv1=(int(rng.integers(0, 200)), int(rng.integers(0, 200))),
+                occupancy_resolution=res,
+                patch_orientation=PatchOrientation(int(rng.integers(0, 8))),
+            )
+            p.set_view_id(int(rng.integers(0, 6)))
+            p.d1 = 100 if p.projection_mode == 0 else 900
+            try:
+                _check_orientation_in_range(p, W, H)
+            except RefUnsupportedFeature:
+                continue
+            patches.append(p)
+        meta = FrameMeta(width=W, height=H, patches=patches)
+        occ = (rng.random((H // prec, W // prec)) < 0.5).astype(np.uint8)
+        d0 = rng.integers(0, 256, (H, W)).astype(np.uint16) * 4
+        d1 = np.minimum(d0 // 4 + rng.integers(0, 3, (H, W)),
+                        255).astype(np.uint16) * 4
+        ay = rng.integers(0, 1024, (2, H, W)).astype(np.uint16)
+        au = rng.integers(0, 1024, (2, H // 2, W // 2)).astype(np.uint16)
+        av = rng.integers(0, 1024, (2, H // 2, W // 2)).astype(np.uint16)
+        params = GeneratePointCloudParams(
+            occupancy_resolution=res, occupancy_precision=prec,
+            map_count_minus1=1,
+        )
+        ps, _, _ = generate_point_cloud(
+            meta, params, occ, [d0, d1],
+            [[[ay[0], au[0], av[0]], [ay[1], au[1], av[1]]]],
+        )
+        want.append(ps)
+        gt = build_group_table(meta, occ_provider=lambda occ=occ: occ,
+                               occ_precision=prec)
+        rows.append((gt.fields, occ, d0, d1, ay, au, av))
+    arrays = tuple(np.stack([r[i] for r in rows]) for i in range(7))
+    cfg_ref = make_config(width=W, height=H, occupancy_resolution=res,
+                          occupancy_precision=prec, map_count=2)
+    cfg, *tensors = T.inputs_from_reference(cfg_ref, arrays)
+    ops, counts = R.reconstruct_batch(*tensors, cfg)
+    pos, col = T._unpack_ops_points(ops, "gather")
+    _, _, ref_counts = ref_batch(*arrays, cfg=cfg_ref)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(ref_counts))
+    for k, ps in enumerate(want):
+        n = int(counts[k])
+        assert n == ps.point_count, k
+        np.testing.assert_array_equal(pos[k, :n].numpy(), ps.positions)
+        np.testing.assert_array_equal(col[k, :n].numpy(), ps.colors16bit)
+    assert sum(ps.point_count > 0 for ps in want) >= 8
+
+
+@needs_encoder
+@pytest.mark.parametrize("name", ["rotated", "rotated_smoothing_secondary"])
+def test_rotated_cli_matches_reference_cli(tmp_path, name):
+    """``python -m tpu_vpcc_torch.runtime.cli --device cpu`` on rotated
+    streams (the gather fallback) writes the same files as tpu_vpcc's
+    CLI and as its own oracle path."""
+    stream = tmp_path / f"{name}.bin"
+    stream.write_bytes(STREAMS[name]())
+    flags = (["--apply-geo-smoothing", "--apply-attr-smoothing"]
+             if name in STREAM_PARAMS else [])
+    args = ["-i", str(stream)] + flags
+    assert port_cli.main(args + ["-o", str(tmp_path / "port"),
+                                 "--device", "cpu"]) == 0
+    assert port_cli.main(args + ["-o", str(tmp_path / "ora"),
+                                 "--oracle"]) == 0
+    assert ref_cli.main(args + ["-o", str(tmp_path / "ref")]) == 0
+    names = sorted(p.name for p in (tmp_path / "ref").iterdir())
+    assert len(names) == 2
+    for out in ("port", "ora"):
+        assert names == sorted(p.name for p in (tmp_path / out).iterdir())
+        for n in names:
+            assert (tmp_path / out / n).read_bytes() == \
+                (tmp_path / "ref" / n).read_bytes()
+
+
+def _gather_gof(kind, fcfg, seed, tiled=True):
+    """A prepared GOF that takes the gather fallback: ``rotated`` (a
+    third of the patches turned), ``geometry12`` (12-bit geometry
+    samples) or ``rotated_smoothing`` (rotated, with geometry and colour
+    smoothing)."""
+    from tpu_vpcc_torch.models.flagship import (
+        ATTR_SMOOTHING,
+        GEO_SMOOTHING,
+        example_frames,
+        example_gof,
+    )
+
+    rotated = 0.0 if kind == "geometry12" else 1 / 3
+    frames = example_frames(fcfg, seed=seed, n_patches=8, rotated=rotated)
+    kw = {"geometry_bits": 12} if kind == "geometry12" else {}
+    if kind == "rotated_smoothing":
+        kw = dict(geo_smoothing=GEO_SMOOTHING, attr_smoothing=ATTR_SMOOTHING)
+    return example_gof(fcfg, frames, tiled=tiled, **kw)
+
+
+GATHER_GOFS = ("rotated", "geometry12", "rotated_smoothing")
+
+
+@pytest.mark.parametrize("kind", GATHER_GOFS)
+def test_gather_gofs_through_decoder_match_oracle(kind):
+    """``Decoder.start_gofs`` on prepared GOFs that take the gather
+    fallback, two in flight, equal the oracle path on the same GOFs; the
+    12-bit GOF also equals the 10-bit decode of its frames, and the
+    K1F counter stays untouched on the CPU."""
+    from tpu_vpcc_torch.models.flagship import FlagshipConfig, example_gof
+    from tpu_vpcc_torch.ops import shift_compact as sc
+    from tpu_vpcc_torch.runtime import pipeline as P
+
+    fcfg = FlagshipConfig(128, 128, batch=2)
+    gofs = [_gather_gof(kind, fcfg, s) for s in (0, 2)]
+    for g in gofs:
+        cfg, tables, g_bucket = P._gof_tables_and_bucket(g)
+        assert not P._gof_device_inputs(
+            g, g.metas, (cfg, tables), g_bucket).use_tiled
+
+    def run(gofs, **kw):
+        dec = Decoder(Params(**kw))
+        dec.start_gofs(gofs)
+        return [format_ply(f) for f in dec]
+
+    before = sc.full_launches
+    got = run(gofs, device="cpu", pipeline_gofs=2)
+    assert sc.full_launches == before
+    assert len(got) == 4 and all(b"element vertex 0" not in f for f in got)
+    oracle = [_gather_gof(kind, fcfg, s, tiled=False) for s in (0, 2)]
+    assert got == run(oracle, use_device=False)
+    if kind == "geometry12":
+        from tpu_vpcc_torch.models.flagship import example_frames
+
+        narrow = [example_gof(fcfg, example_frames(fcfg, seed=s, n_patches=8))
+                  for s in (0, 2)]
+        assert got == run(narrow, device="cpu")
+
+
+def test_quantized_extent_on_gather_frame_raises():
+    """A quantized patch extent exists only as a packed-occupancy mask
+    in the block-tiled cat: on frames that take the gather fallback
+    (here 12-bit geometry) the port refuses it as tpu_vpcc does."""
+    from tpu_vpcc.runtime import pipeline as ref_pipeline
+    from tpu_vpcc.runtime.pipeline import GofData as RefGofData
+    from tpu_vpcc_torch.models.flagship import FlagshipConfig, example_frames
+    from tpu_vpcc_torch.runtime.host import GofData
+
+    fcfg = FlagshipConfig(64, 64, 8, 4, batch=1)
+    match = "patch size quantizer needs the block-tiled dispatch"
+    for gof_cls, frames in (
+        (GofData, example_frames(fcfg, seed=3, n_patches=3)),
+        (RefGofData, _mk(3, n_frames=1)),
+    ):
+        p = frames[0].meta.patches[0]
+        p.size_2d_in_pixel = (p.size_uv0[0] * 8 - 3, p.size_uv0[1] * 8 - 5)
+        sf = frames[0]
+        gof = gof_cls(
+            metas=[sf.meta], occ_planes=sf.occ_plane[None],
+            geo_planes=[g * 4 for g in sf.geo_planes],
+            attr_planes=list(sf.attr_planes), map_count=2,
+            occupancy_precision=4, occupancy_resolution=8, absolute_d1=True,
+            geo_shift=4, attribute_count=1, frame_count=1,
+            packed10_ok=False,
+        )
+        if gof_cls is GofData:
+            dec = Decoder(Params(device="cpu"))
+            dec.start_gofs([gof])
+            with pytest.raises(UnsupportedFeature, match=match):
+                list(dec)
+        else:
+            with pytest.raises(RefUnsupportedFeature, match=match):
+                list(ref_pipeline._reconstruct_gof_device(gof))
 
 
 @pytest.mark.parametrize("depth", [1, 2])
@@ -357,3 +643,29 @@ def test_cuda_device_without_card_raises(monkeypatch):
         Decoder(Params(VERIFY_STREAM, device="cuda"))
     # the oracle path needs no device
     Decoder(Params(VERIFY_STREAM, device="cuda", use_device=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", GATHER_GOFS)
+def test_gather_gofs_on_card_match_cpu(kind):
+    """The gather fallback through ``Decoder.start_gofs`` on the card
+    (slot math on the card, K1F) equals its CPU run, frame by frame."""
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (on the card: pytest -m cuda)")
+    from tpu_vpcc_torch.models.flagship import FlagshipConfig
+    from tpu_vpcc_torch.ops import shift_compact as sc
+
+    fcfg = FlagshipConfig(128, 128, batch=2)
+    gofs = [_gather_gof(kind, fcfg, s) for s in (0, 2)]
+
+    def run(device):
+        dec = Decoder(Params(device=device))
+        dec.start_gofs(gofs)
+        return [format_ply(f) for f in dec]
+
+    before = sc.full_launches
+    got = run("cuda")
+    assert sc.full_launches == before + len(gofs)
+    assert got == run("cpu")

@@ -517,6 +517,45 @@ def test_trace_split_gives_each_name_its_time_per_call():
         KT.trace_split_ms(_SPIN, _ONE, _many(20, scan=19), 20)
 
 
+def _measured(ms, queued=0.1, bound=0.05):
+    return {"ms": ms, "queued_ms": queued, "bound_ms": bound}
+
+
+@pytest.mark.parametrize("ms,ok", [
+    (0.05, True),     # at the bound
+    (0.105, True),    # at the queued time's slack
+    (0.0499, False),  # below the bound: work missed or the bound wrong
+    (0.106, False),   # above the slack: a trace ran long
+])
+def test_check_measured(ms, ok):
+    if ok:
+        KT.check_measured(_measured(ms))
+    else:
+        with pytest.raises(KT.TimingError):
+            KT.check_measured(_measured(ms))
+
+
+@pytest.mark.parametrize("times,tries", [
+    ([0.08], 1),
+    ([0.12, 0.08], 2),
+    ([0.04, 0.12, 0.08], 3),
+    ([0.12, 0.12, 0.12, 0.08], None),  # three failed: given up
+], ids=["first", "second", "third", "given-up"])
+def test_measure_takes_a_failed_measurement_anew(monkeypatch, times, tries):
+    """``measure`` takes a measurement that fails ``check_measured``
+    again, up to ``MEASURE_TRIES`` in all, and says how many it took."""
+    left = iter(times)
+    monkeypatch.setattr(KT, "_measure_once", lambda *a: (
+        _measured(next(left)), " traces"))
+    if tries is None:
+        with pytest.raises(KT.TimingError, match="try 3: .* traces"):
+            KT.measure(None, None)
+        assert next(left) == 0.08  # no fourth measurement
+    else:
+        out = KT.measure(None, None)
+        assert (out["ms"], out["tries"]) == (0.08, tries)
+
+
 @pytest.mark.parametrize("name,short", [
     ("void (anonymous namespace)::count_kernel<true>(unsigned char const*, "
      "long, long, int, int*)", "count_kernel<true>"),

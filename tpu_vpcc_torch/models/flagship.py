@@ -10,7 +10,8 @@ and colour smoothing configs (BASELINE config 4's feature set;
 :data:`GEO_SMOOTHING` and :data:`ATTR_SMOOTHING` are the values of
 ``bench.py``'s smoothing family), and ``example_frames`` can put a share
 of the patches on 45-degree views, as ``bench.py``'s proj45 family sets
-them.
+them. The gather fallback's: ``example_frames`` can turn a share of the
+patches to rotated orientations (:data:`ROTATED`).
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from typing import List, Tuple
 import numpy as np
 
 from ..atlas import groups as G
-from ..atlas.patches import Patch
+from ..atlas.patches import Patch, _check_orientation_in_range
+from ..v3c.syntax import PatchOrientation, UnsupportedFeature
 from ..ops.reconstruct import FrameConfig, make_config
 from ..ops.smoothing import AttrSmoothingConfig, SmoothingConfig
 from ..ops.tiled import tile_plane
@@ -74,14 +76,50 @@ def set_45_degree_views(sf: SyntheticFrame, share: float, seed: int) -> int:
     return n
 
 
+#: the orientations that leave block alignment at resolution > 1 (the
+#: tmc2-rs size quirk), so their frames take the gather fallback
+ROTATED = (
+    PatchOrientation.ROT90, PatchOrientation.ROT180, PatchOrientation.ROT270,
+    PatchOrientation.MIRROR, PatchOrientation.MROT90,
+    PatchOrientation.MROT180,
+)
+
+
+def rotate_patches(patches: List[Patch], share: float, seed: int,
+                   width: int, height: int) -> Tuple[List[Patch], int]:
+    """About ``share`` of ``patches`` (drawn from ``seed``) turned to an
+    orientation of :data:`ROTATED`, each the first of a random order of
+    them that the reference's range gate admits on a ``width`` x
+    ``height`` canvas (a patch none fits keeps its own). Returns the new
+    list and how many patches turned."""
+    rng = np.random.default_rng(seed)
+    out = list(patches)
+    n = int(round(share * len(out)))
+    turned = 0
+    for i in sorted(rng.choice(len(out), n, replace=False)):
+        for o in rng.permutation(len(ROTATED)):
+            p = replace(out[i], patch_orientation=ROTATED[o])
+            try:
+                _check_orientation_in_range(p, width, height)
+            except UnsupportedFeature:
+                continue
+            out[i] = p
+            turned += 1
+            break
+    return out, turned
+
+
 def example_frames(cfg: FlagshipConfig, seed: int = 0, n_patches: int = 48,
-                   occupancy_fill: float = 0.7,
-                   views45: float = 0.0) -> List[SyntheticFrame]:
+                   occupancy_fill: float = 0.7, views45: float = 0.0,
+                   rotated: float = 0.0) -> List[SyntheticFrame]:
     """``cfg.batch`` synthetic frames (frame k from seed ``seed + k``);
     ``views45`` is the share of each frame's patches put on 45-degree
-    views (:func:`set_45_degree_views`)."""
-    frames = [
-        make_synthetic_frame(
+    views (:func:`set_45_degree_views`), ``rotated`` the share turned to
+    rotated orientations (:func:`rotate_patches`), whose planes are then
+    made anew for the turned footprints."""
+
+    def frame(k, patches=None):
+        return make_synthetic_frame(
             np.random.default_rng(seed + k),
             width=cfg.width,
             height=cfg.height,
@@ -91,9 +129,16 @@ def example_frames(cfg: FlagshipConfig, seed: int = 0, n_patches: int = 48,
             n_patches=n_patches,
             occupancy_fill=occupancy_fill,
             frame_index=k,
+            patches=patches,
         )
-        for k in range(cfg.batch)
-    ]
+
+    frames = [frame(k) for k in range(cfg.batch)]
+    if rotated:
+        frames = [
+            frame(k, rotate_patches(sf.meta.patches, rotated, seed + k,
+                                    cfg.width, cfg.height)[0])
+            for k, sf in enumerate(frames)
+        ]
     if views45:
         for k, sf in enumerate(frames):
             set_45_degree_views(sf, views45, seed=seed + k)
@@ -155,15 +200,20 @@ def bucket_flagship_inputs(raw, fcfg: FrameConfig):
 
 def example_gof(cfg: FlagshipConfig, frames: List[SyntheticFrame],
                 tiled: bool = True, geo_smoothing=None,
-                attr_smoothing=None) -> GofData:
+                attr_smoothing=None, geometry_bits: int = 10) -> GofData:
     """A decoded GOF as ``prepare_gof`` hands it to the reconstruction:
     geometry and attribute planes block-tiled (the layout the native
     video bridge emits; raster for the oracle path when ``tiled`` is
     false), occupancy raster, 10-bit 4:2:0 YUV attributes, and the
     smoothing configs as the applied SEIs would set them (None = off).
+    ``geometry_bits`` > 10 widens the geometry samples (scaled by
+    ``2**(geometry_bits - 10)`` and read with as much more ``geo_shift``,
+    so the points stay those of the 10-bit GOF); such a GOF is not
+    10-bit packable and takes the gather fallback.
     ``frames[k].meta.frame_index`` must be ``k``."""
     res = cfg.occupancy_resolution
     mc = cfg.map_count
+    wider = geometry_bits - 10
 
     def lay(plane, t):
         return tile_plane(plane, t) if tiled else plane
@@ -171,7 +221,7 @@ def example_gof(cfg: FlagshipConfig, frames: List[SyntheticFrame],
     geo, attr = [], []
     for sf in frames:
         for m in range(mc):
-            geo.append(lay(sf.geo_planes[m], res))
+            geo.append(lay(sf.geo_planes[m] << wider, res))
             y, u, v = sf.attr_planes[m]
             attr.append([lay(y, res), lay(u, res // 2), lay(v, res // 2)])
     return GofData(
@@ -183,11 +233,12 @@ def example_gof(cfg: FlagshipConfig, frames: List[SyntheticFrame],
         occupancy_precision=cfg.occupancy_precision,
         occupancy_resolution=res,
         absolute_d1=True,
-        geo_shift=2,
+        geo_shift=2 + wider,
         attribute_count=1,
         frame_count=len(frames),
         tiled=tiled,
         tile_size=res if tiled else 0,
         geo_smoothing=geo_smoothing,
         attr_smoothing=attr_smoothing,
+        packed10_ok=geometry_bits <= 10,
     )

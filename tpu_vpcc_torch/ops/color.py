@@ -179,16 +179,27 @@ def _device_luts(device: torch.device):
 
 
 def rgb8_from_yuv16(col16):
-    """(..., 3) integer YUV (10-bit values) -> (..., 3) uint8 RGB."""
+    """(..., 3) integer YUV (u16 sample values) -> (..., 3) uint8 RGB.
+
+    Samples wider than 10 bits (the gather fallback's) index the tables
+    as the JAX function's clamped gathers do: ``s_r[min(v, 1023)]``,
+    ``s_b[min(u, 1023)]`` and ``packed_g`` at the flat index
+    ``min(u*1024 + v, 1024² - 1)``, one clamp and not one per axis. On a
+    CUDA tensor an index past a table would be a device fault."""
     s_r, s_b, packed_g = _device_luts(col16.device)
     c = col16.to(torch.int32)
     y = c[..., 0]
     u = c[..., 1]
     v = c[..., 2]
     y85 = 85 * y
-    sr = s_r[v]
-    sb = s_b[u]
-    pg = packed_g[u * 1024 + v]
+    sr = s_r[v.clamp(max=1023)]
+    sb = s_b[u.clamp(max=1023)]
+    pg = packed_g[(u * 1024 + v).clamp(max=1024 * 1024 - 1)]
+    # g8_from_packed reads bits 16 + k and 20 + k of the cell, k = y //
+    # 341: from k = 8 on both lie above the cell's 24 bits, where XLA's
+    # shift gives 0 (also for k >= 32); so does a cell stripped of its
+    # mask bits, whatever a device does with shifts of 32 or more
+    pg = torch.where(y < 8 * 341, pg, pg & 0xFFFF)
     rgb = torch.stack(
         [(y85 - sr) // 341, g8_from_packed(y, pg), (y85 - sb) // 341],
         dim=-1,

@@ -1,8 +1,11 @@
 """Grid smoothing of the wide path: geometry and colour.
 
 Counterparts of ``tpu_vpcc.ops.smoothing.smooth_batch`` and
-``smooth_colors_batch``. Those are XLA scatters in the JAX package, not
-Pallas kernels, so here they stay plain PyTorch on the tensors' device:
+``smooth_colors_batch`` (the wide path's (F, S) slot tensors) and of
+``smooth_flat`` and ``smooth_colors_flat`` (the gather fallback's slots,
+flattened over the frames with an explicit frame index). Those are XLA
+scatters in the JAX package, not Pallas kernels, so here they stay plain
+PyTorch on the tensors' device:
 ``index_add_`` and ``scatter_reduce_`` (``amin``/``amax``) over
 ``F * grid_width³`` flat cells, each frame's grid folded into the cell
 axis. :func:`_smooth_core` and :func:`_smooth_color_core` transcribe the
@@ -238,15 +241,36 @@ def _i32(t):
     return t.reshape(-1).to(torch.int32)
 
 
+def smooth_flat(xs, ys, zs, valid, pid, frame, n_frames: int,
+                cfg: SmoothingConfig):
+    """Geometry smoothing over flat slot tensors: ``frame`` is each
+    slot's frame index (one grid per frame, ``n_frames`` of them).
+    ``xs, ys, zs, pid`` integer, ``valid`` bool; returns the flat int32
+    smoothed ``xs, ys, zs``."""
+    return _smooth_core(
+        _i32(xs), _i32(ys), _i32(zs), valid.reshape(-1), _i32(pid),
+        frame.reshape(-1).to(torch.int64), n_frames, cfg,
+    )
+
+
+def smooth_colors_flat(xs, ys, zs, cy, cu, cv, valid, pid, frame,
+                       n_frames: int, cfg: AttrSmoothingConfig):
+    """Colour smoothing over flat slot tensors on the positions' grid,
+    one grid per frame (see :func:`smooth_flat`); returns the flat int32
+    ``cy, cu, cv``."""
+    return _smooth_color_core(
+        _i32(xs), _i32(ys), _i32(zs), _i32(cy), _i32(cu), _i32(cv),
+        valid.reshape(-1), _i32(pid), frame.reshape(-1).to(torch.int64),
+        n_frames, cfg,
+    )
+
+
 def smooth_batch(xs, ys, zs, valid, pid, cfg: SmoothingConfig):
     """Geometry smoothing over (F, S) slot tensors, one grid per frame.
     ``xs, ys, zs, pid`` integer, ``valid`` bool; returns the (F, S)
     int32 smoothed ``xs, ys, zs``."""
     F, S = xs.shape
-    out = _smooth_core(
-        _i32(xs), _i32(ys), _i32(zs), valid.reshape(-1), _i32(pid),
-        _flat_frames(xs), F, cfg,
-    )
+    out = smooth_flat(xs, ys, zs, valid, pid, _flat_frames(xs), F, cfg)
     return tuple(a.reshape(F, S) for a in out)
 
 
@@ -255,8 +279,6 @@ def smooth_colors_batch(xs, ys, zs, cy, cu, cv, valid, pid,
     """Colour smoothing over (F, S) slot tensors on the positions' grid,
     one grid per frame; returns the (F, S) int32 ``cy, cu, cv``."""
     F, S = xs.shape
-    out = _smooth_color_core(
-        _i32(xs), _i32(ys), _i32(zs), _i32(cy), _i32(cu), _i32(cv),
-        valid.reshape(-1), _i32(pid), _flat_frames(xs), F, cfg,
-    )
+    out = smooth_colors_flat(xs, ys, zs, cy, cu, cv, valid, pid,
+                             _flat_frames(xs), F, cfg)
     return tuple(a.reshape(F, S) for a in out)

@@ -1,7 +1,11 @@
 """Tiled whole-frame reconstruction: the narrow and the wide path.
 
 Counterpart of ``tpu_vpcc.ops.tiled`` in its one production staging
-mode: host-packed, host-oriented "cat" inputs.
+mode: host-packed, host-oriented "cat" inputs. Frames these paths cannot
+take (:func:`tiled_supported`, rotated orientations, samples wider than
+10 bits) go to the gather fallback, ``reconstruct.reconstruct_batch``,
+whose raster inputs cross to the device by :func:`gather_inputs_to_device`
+and whose words unpack here with the "gather" layout.
 
 Host half (numpy): the three u32 sample planes are packed per canvas
 block and concatenated into one ``(F, nb, 3*res*res)`` cat, with
@@ -242,22 +246,47 @@ def to_device(fields, cat, device):
     )
 
 
+def gather_inputs_to_device(fields, occ, geo0, geo1, ay, au, av, device):
+    """The gather dispatch's staged raster arrays -> device tensors:
+    ``fields`` int32, ``occ`` uint8, and the five u16 sample planes as
+    int16 bit patterns (torch's uint16 lacks the CPU ops the slot math
+    needs; ``reconstruct.gather_words`` widens each gathered sample with
+    ``& 0xFFFF``)."""
+
+    def put(a, dtype, view=None):
+        a = np.ascontiguousarray(a, dtype=dtype)
+        return torch.from_numpy(a if view is None else a.view(view)).to(device)
+
+    return (
+        put(fields, np.int32),
+        put(occ, np.uint8),
+        *(put(a, np.uint16, np.int16) for a in (geo0, geo1, ay, au, av)),
+    )
+
+
 def inputs_from_reference(cfg_ref, arrays, device="cpu"):
     """Carry the JAX package's staged dispatch across: its
-    ``FrameConfig`` and cat-mode ``DeviceInputs.arrays`` = ``(fields,
-    cat, None x5)`` become this port's ``FrameConfig`` and device
-    tensors. Fields are read by name; the reference's TPU compaction
-    policy fields have no counterpart and are dropped."""
+    ``FrameConfig`` and ``DeviceInputs.arrays`` become this port's
+    ``FrameConfig`` and device tensors. Cat-mode arrays ``(fields, cat,
+    None x5)`` give ``(cfg, fields, cat)``; the gather dispatch's seven
+    raster arrays ``(fields, occ, geo0, geo1, ay, au, av)`` give ``(cfg,
+    *seven tensors)`` (:func:`gather_inputs_to_device`). Fields are read
+    by name; the reference's TPU compaction policy fields have no
+    counterpart and are dropped."""
     if getattr(cfg_ref, "cell_groups", False) or getattr(
         cfg_ref, "raw_gather", False
     ):
         raise UnsupportedFeature("cell tables and raw gathers are not ported")
-    if any(a is not None for a in arrays[2:]):
-        raise ValueError("expected cat-mode arrays (fields, cat, None x5)")
     cfg = FrameConfig(**{
         f.name: getattr(cfg_ref, f.name)
         for f in dataclasses.fields(FrameConfig)
     })
+    if len(arrays) == 7 and all(a is not None for a in arrays):
+        return (cfg, *gather_inputs_to_device(
+            *(np.asarray(a) for a in arrays), device))
+    if any(a is not None for a in arrays[2:]):
+        raise ValueError("expected cat-mode arrays (fields, cat, None x5) "
+                         "or the gather dispatch's seven arrays")
     fields, cat = to_device(np.asarray(arrays[0]), np.asarray(arrays[1]),
                             device)
     return cfg, fields, cat
@@ -476,15 +505,19 @@ def _unpack_ops_points(ops, layout: str = "narrow"):
     """(positions, colors16), each (F, n, 3) int32, from compacted
     operands. ``layout`` "narrow": 2 operands = the pack30 layout, 3 =
     the split zs layout; "wide": ``(w0, w1, w2)`` = (x|y<<16, z|cy<<16,
-    cu|cv<<16), the counterpart of the reference's ``_unpack_sorted``.
-    The wide layout has three operands too, so it is never inferred."""
-    if layout == "wide":
+    cu|cv<<16), the counterpart of the reference's ``_unpack_sorted``;
+    "gather": the same words from ``reconstruct.reconstruct_batch``,
+    whose colours keep all 16 bits. The wide and gather layouts have
+    three operands too, so a layout is never inferred."""
+    if layout in ("wide", "gather"):
         s0, s1, s2 = ops
         positions = torch.stack([_lo16(s0), _hi16(s0), _lo16(s1)], dim=-1)
-        # colours are 10-bit samples (the cat packs 10 bits): the mask
-        # changes no point, and keeps the unspecified tail past a
-        # frame's count inside the colour tables
         colors16 = torch.stack([_hi16(s1), _lo16(s2), _hi16(s2)], dim=-1)
+        if layout == "gather":
+            return positions, colors16
+        # wide colours are 10-bit samples (the cat packs 10 bits): the
+        # mask changes no point, and keeps the unspecified tail past a
+        # frame's count inside the colour tables
         return positions, colors16 & 0x3FF
     if layout != "narrow":
         raise ValueError(f"unknown operand layout {layout!r}")

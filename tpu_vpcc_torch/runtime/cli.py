@@ -4,7 +4,7 @@
 
 The flags are ``tpu_vpcc.runtime.cli``'s, plus ``--device``, minus the
 no-op ``-d`` and ``--keep-intermediate-files``. Several ``-i`` inputs
-(the multi-stream batcher) are not ported yet (ROADMAP queue 1 #9).
+(the multi-stream batcher) are not ported yet (ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ def main(argv=None) -> int:
 
     if len(args.compressed_stream_paths) > 1:
         print("error: several -i inputs need the multi-stream batcher, not "
-              "yet ported (ROADMAP queue 1 #9)", file=sys.stderr)
+              "yet ported (ROADMAP queue 1 item 4)", file=sys.stderr)
         return 2
 
     from .pipeline import Decoder, Params

@@ -7,24 +7,27 @@ iteration, one background decode thread and a bounded queue.
 Per GOF:
   1. host: demux V3C units into a fresh Context, build patch frames;
   2. host: decode the HEVC sub-streams (native libavcodec bridge);
-  3. host: group tables and the packed, host-oriented cat staging
-     (``ops.tiled.stage_cat_inputs``);
-  4. device (``Params.device``), routed on ``ops.tiled.narrow_emit_ok``
-     as the reference routes:
+  3. host: group tables, then the staging: the packed, host-oriented
+     cat (``ops.tiled.stage_cat_inputs``), or, for frames the tiled
+     paths cannot take (rotated orientations, samples wider than 10
+     bits, ``ops.tiled.tiled_supported`` false), the raster planes;
+  4. device (``Params.device``), routed as the reference routes, on
+     ``DeviceInputs.use_tiled`` and then ``ops.tiled.narrow_emit_ok``:
      - the narrow path: cat-row gather, narrow words stage and the K1
        compaction (``ops.tiled.reconstruct_batch_pretiled_packed``);
      - the wide path, for geometry or colour smoothing and 45-degree
        views: the K2W gather and wide words, smoothing, and the K1F
        compaction (``ops.tiled.reconstruct_batch_pretiled``);
+     - the gather fallback: slot math on the raster planes, smoothing,
+       and the K1F compaction (``ops.reconstruct.reconstruct_batch``);
   5. device: slice each frame's compacted prefix, unpack it (the layout
      the dispatch names) and convert its colours, then copy it to the
      host as a ``PointSet3``.
 
 The host layers (V3C, atlas, video, the numpy oracle and the raw/EOM/PLR
 tails, :mod:`.host`) are the port's own copies of ``tpu_vpcc``'s; the
-port imports nothing of that package. What needs
-the gather fallback (non-tileable orientations, samples wider than 10
-bits) or a mesh is not ported yet and raises ``UnsupportedFeature``.
+port imports nothing of that package. ``Params`` has no mesh: the
+reference's multi-device dispatch is not ported yet.
 """
 
 from __future__ import annotations
@@ -991,10 +994,14 @@ DEVICE_BATCH = 2
 
 @dataclass
 class DeviceInputs:
-    """Host-staged arrays for one device dispatch: ``arrays`` = (fields
-    (F, G, N_GROUP_FIELDS) int32, cat (F, nb, 3*res*res) u32)."""
+    """Host-staged arrays for one device dispatch, each with a leading
+    frame axis. When ``use_tiled``: ``arrays`` = (fields (F, G,
+    N_GROUP_FIELDS) int32, cat (F, nb, 3*res*res) u32); otherwise the
+    gather fallback's (fields, occ, geo0, geo1, attr_y, attr_u, attr_v)
+    in canvas layout."""
 
     cfg: object  # ops.reconstruct.FrameConfig
+    use_tiled: bool
     arrays: tuple
     n_frames: int
     # 'yuv10' (exact integer BT.709 -> u8), 'rgb16' (u16 -> u8
@@ -1070,7 +1077,7 @@ def _gof_device_inputs(gof: GofData, metas, prebuilt, g_bucket: int) -> DeviceIn
     """Stage the dispatch inputs for (a chunk of) a GOF's frames: group
     tables bucketed to ``g_bucket`` rows (live groups first, in emission
     order; padding rows have G_VALID=0) and the packed, host-oriented
-    cat."""
+    cat, or for the gather fallback the planes in canvas layout."""
     from ..atlas.groups import N_GROUP_FIELDS
     from ..ops.tiled import (
         stage_cat_inputs,
@@ -1081,16 +1088,11 @@ def _gof_device_inputs(gof: GofData, metas, prebuilt, g_bucket: int) -> DeviceIn
 
     mc = gof.map_count
     cfg, tables = prebuilt
-    if not (
+    use_tiled = (
         tiled_supported(cfg)
-        and gof.packed10_ok
+        and gof.packed10_ok  # the cat packs samples into 10 bits
         and all(t.tiled_ok for t in tables)
-    ):
-        raise UnsupportedFeature(
-            "rotated non-tileable orientations and samples wider than "
-            "10 bits need the gather fallback, not yet ported (ROADMAP "
-            "queue 1 #8)"
-        )
+    )
     fields = np.zeros((len(tables), g_bucket, N_GROUP_FIELDS), np.int32)
     trims = None
     if any(t.trim is not None for t in tables):
@@ -1107,20 +1109,30 @@ def _gof_device_inputs(gof: GofData, metas, prebuilt, g_bucket: int) -> DeviceIn
         fields[k, : t.n_groups] = t.fields[: t.n_groups]
         if trims is not None and t.trim is not None:
             trims[k, : t.n_groups] = t.trim[: t.n_groups]
+    if trims is not None and not use_tiled:
+        # the quantized-extent trim exists only as a packed-occupancy
+        # mask in the block-tiled cat; the gather fallback reads
+        # occupancy at video precision, where a sub-cell trim boundary
+        # cannot be represented
+        raise UnsupportedFeature(
+            "patch size quantizer needs the block-tiled dispatch "
+            "(rotated orientations / non-10-bit-packable streams are "
+            "outside the quantized-patch envelope)"
+        )
     # source tile edge of the gof's planes (0 = canvas layout) and the
-    # block edge the staging wants
+    # one the dispatch wants (the block edge, or 0 for the gather)
     ts = gof.tile_size if gof.tiled else 0
-    kt = cfg.occupancy_resolution
+    kt = cfg.occupancy_resolution if use_tiled else 0
 
     def relayout(plane, shift=0):
-        # a no-op on the production path (prepare_gof decodes straight
-        # into the block-tiled layout); tile edges scale with chroma
-        # subsampling while tile counts stay those of luma
+        # a no-op on the tiled production path (prepare_gof decodes
+        # straight into the block-tiled layout); tile edges scale with
+        # chroma subsampling while tile counts stay those of luma
         if ts == kt:
             return plane
         if ts:
             plane = untile_plane(plane, cfg.height // ts, cfg.width // ts)
-        return tile_plane(plane, kt >> shift)
+        return tile_plane(plane, kt >> shift) if kt else plane
 
     geo0 = np.stack(
         [relayout(gof.geo_planes[m.frame_index * mc]) for m in metas]
@@ -1153,15 +1165,17 @@ def _gof_device_inputs(gof: GofData, metas, prebuilt, g_bucket: int) -> DeviceIn
     ay = attr_stack(0, 0)
     au = attr_stack(1, cfg.chroma_shift)
     av = attr_stack(2, cfg.chroma_shift)
-    occ = tile_plane(
-        np.stack([gof.occ_planes[m.frame_index] for m in metas]),
-        kt // cfg.occupancy_precision,
-    )
-    arrays, cfg = stage_cat_inputs(
-        fields, occ, geo0, geo1, ay, au, av, cfg, trims=trims
-    )
+    occ = np.stack([gof.occ_planes[m.frame_index] for m in metas])
+    if use_tiled:
+        arrays, cfg = stage_cat_inputs(
+            fields, tile_plane(occ, kt // cfg.occupancy_precision),
+            geo0, geo1, ay, au, av, cfg, trims=trims,
+        )
+    else:
+        arrays = (fields, occ, geo0, geo1, ay, au, av)
     return DeviceInputs(
         cfg=cfg,
+        use_tiled=use_tiled,
         arrays=arrays,
         n_frames=len(metas),
         color_mode=_gof_color_mode(gof),
@@ -1215,7 +1229,10 @@ def _fetch_prefixes_packed(ops, counts, color_mode: str = "raw",
     """Device -> host fetch of a dispatch's compacted points: positions
     (F, b, 3) u16 and colours (F, b, 3), u8 unless ``color_mode`` is
     'raw' (u16 samples). ``layout`` names the operands' layout: "narrow"
-    (K1's pack30 or split operands) or "wide" (K1F's three words)."""
+    (K1's pack30 or split operands), "wide" (K1F's three words, 10-bit
+    colours) or "gather" (K1F's three words, 16-bit colours); the
+    counterpart of the reference's ``_fetch_prefixes_packed`` and, for
+    the gather, of its ``_fetch_prefixes``."""
     bucket = _prefix_bucket(counts, ops[0].shape[1])
     if bucket == 0:
         z = np.empty((counts.shape[0], 0, 3), dtype=np.uint16)
@@ -1225,10 +1242,13 @@ def _fetch_prefixes_packed(ops, counts, color_mode: str = "raw",
 
 
 def _dispatch_device(di: DeviceInputs, device, stats=None):
-    """Run one device dispatch, on the narrow path or, for smoothing
-    and 45-degree views, the wide one; returns a per-frame list of host
+    """Run one device dispatch: the gather fallback unless
+    ``di.use_tiled``, else the narrow path or, for smoothing and
+    45-degree views, the wide one. Returns a per-frame list of host
     (positions (n,3) u16, colors (n,3)) in emission order."""
+    from ..ops.reconstruct import reconstruct_batch
     from ..ops.tiled import (
+        gather_inputs_to_device,
         narrow_emit_ok,
         reconstruct_batch_pretiled,
         reconstruct_batch_pretiled_packed,
@@ -1238,22 +1258,25 @@ def _dispatch_device(di: DeviceInputs, device, stats=None):
     if di.n_frames > DEVICE_BATCH:
         out = []
         for i in range(0, di.n_frames, DEVICE_BATCH):
-            sub = DeviceInputs(
-                cfg=di.cfg,
+            sub = replace(
+                di,
                 arrays=tuple(a[i : i + DEVICE_BATCH] for a in di.arrays),
                 n_frames=min(DEVICE_BATCH, di.n_frames - i),
-                color_mode=di.color_mode,
             )
             out.extend(_dispatch_device(sub, device, stats=stats))
         return out
-    layout = "narrow" if narrow_emit_ok(di.cfg) else "wide"
-    dispatch = (
-        reconstruct_batch_pretiled_packed if layout == "narrow"
-        else reconstruct_batch_pretiled
-    )
+    if not di.use_tiled:
+        layout, put, dispatch = (
+            "gather", gather_inputs_to_device, reconstruct_batch
+        )
+    elif narrow_emit_ok(di.cfg):
+        layout, put, dispatch = (
+            "narrow", to_device, reconstruct_batch_pretiled_packed
+        )
+    else:
+        layout, put, dispatch = "wide", to_device, reconstruct_batch_pretiled
     with _st(stats, "recon_dispatch"):
-        fields, cat = to_device(*di.arrays, device)
-        ops, counts = dispatch(fields, cat, di.cfg)
+        ops, counts = dispatch(*put(*di.arrays, device), di.cfg)
         counts = counts.cpu().numpy()  # device sync
     with _st(stats, "recon_fetch"):
         pos_all, col_all = _fetch_prefixes_packed(
