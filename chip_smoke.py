@@ -85,7 +85,23 @@ failure:
      and required byte-equal, and every probe at about 64 MiB per
      operand with its times (below). P4's and P8's kernels are held
      against their plain versions over the whole output, uncovered rows
-     and segment tails included.
+     and segment tails included;
+  9. the multi-stream batcher (``parallel.batcher``'s wave loop, fed
+     prepared GOFs) on the card: 8 streams of two GOFs (streams 0-5
+     phase 3's narrow GOFs, stream 6 phase 5's smoothed and 45-degree
+     GOFs, stream 7 phase 5b's GOFs R and W), every frame byte-equal to
+     its decode in phase 3, 5 or 5b; a spy on the dispatches shows the
+     first wave's 12 narrow frames merged into one input and dispatched
+     as 6 chunks of ``DEVICE_BATCH``, and the K1, K2W and K1F launch
+     counters advance by exactly the narrow, wide and gather chunks. Then
+     the aggregate frames/s beside ``Decoder.start_gofs`` over the same
+     16 GOFs (two in flight), the batcher's stage split, its peak device
+     memory, and the 12-frame narrow merged input dispatched at chunks
+     of 2, 4, 6 and 12 frames (CUDA events for the dispatch with its
+     H2D, host clock for the whole);
+ 10. the colour proof: ``tools.verify_color_exact`` runs
+     ``rgb8_from_yuv16`` against the f64 chain over all 2^30 10-bit
+     (y, u, v) triples on the card, 0 mismatches required.
 
 A kernel's times (``tools.kernel_times.measure``): its device-only time
 (the work the card ran, from a whole ``torch.profiler`` trace of 20
@@ -575,7 +591,7 @@ def phase_k2w(gof):
 def phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err):
     """The wide flagship main path through ``Decoder.start_gofs``, the
     oracle, smoothing's effect and the timings; returns the kernels' JSON
-    entries of K1F and K2W."""
+    entries of K1F and K2W, the two wide GOFs and their decoded frames."""
     import numpy as np
     import torch
 
@@ -755,13 +771,14 @@ def phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err):
         dict(k2w, name="wide_words", route="cuda", source=K2W_SOURCE,
              replaces=K2W_REPLACES, launches=k2w_launches,
              max_abs_err=k2w_err),
-    ]
+    ], wide_gofs, out
 
 
 def phase_gather(fcfg, frame_sets, narrow_out):
     """The gather fallback on the card through ``Decoder.start_gofs``
     (GOFs R, W and RS, see the module note), the oracle, and the
-    timings; returns the kernels entry of K1F on the gather path."""
+    timings; returns the kernels entry of K1F on the gather path, GOFs
+    R, W and RS and their decoded frames."""
     import numpy as np
     import torch
 
@@ -1014,7 +1031,7 @@ def phase_gather(fcfg, frame_sets, narrow_out):
           f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
     return dict(k1f, name="shift_compact_full (gather path)", route="cuda",
                 source=K1_SOURCE, replaces=K1F_REPLACES,
-                launches=launches["K1F"], max_abs_err=err)
+                launches=launches["K1F"], max_abs_err=err), gofs, out
 
 
 def phase_stream():
@@ -1234,6 +1251,190 @@ def phase_probes():
     ]
 
 
+def _layout(di) -> str:
+    from tpu_vpcc_torch.ops.tiled import narrow_emit_ok
+
+    if not di.use_tiled:
+        return "gather"
+    return "narrow" if narrow_emit_ok(di.cfg) else "wide"
+
+
+def run_batcher(streams, stats=None):
+    """The batcher's wave loop on the card over prepared GOFs (one list
+    per stream; the prep hands out each stream's next GOF); each
+    stream's frames, in order."""
+    from tpu_vpcc_torch.parallel import batcher as B
+    from tpu_vpcc_torch.runtime.pipeline import Params
+
+    out = [[] for _ in streams]
+    for s, f, ps in B._decode_waves([iter(g) for g in streams],
+                                    lambda it: next(it, None),
+                                    Params(device="cuda"), stats=stats):
+        check(f == len(out[s]), f"stream {s}: frame {f} out of order")
+        out[s].append(ps)
+    return out
+
+
+def phase_batcher(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
+                  gather_out):
+    """The multi-stream batcher on the card (see the module note): 8
+    streams of two prepared GOFs, counted, each frame byte-equal to its
+    earlier decode; then frames/s beside ``Decoder.start_gofs``, the stage
+    split, peak memory and the narrow merged input at chunks of 2-12."""
+    import numpy as np
+    import torch
+
+    from tpu_vpcc_torch.ops import payload
+    from tpu_vpcc_torch.ops import shift_compact as sc
+    from tpu_vpcc_torch.ops.tiled import (
+        reconstruct_batch_pretiled_packed,
+        to_device,
+    )
+    from tpu_vpcc_torch.parallel import batcher as B
+    from tpu_vpcc_torch.runtime import pipeline as P
+    from tpu_vpcc_torch.tools.kernel_times import event_ms, nvidia_smi_line
+    from tpu_vpcc_torch.utils.stats import GofStats
+
+    smi = nvidia_smi_line()
+    # streams 0-5: phase 3's narrow GOFs; 6: phase 5's smoothed and 45°
+    # GOFs; 7: phase 5b's GOFs R and W
+    streams = [list(gofs)] * 6 + [list(wide_gofs), list(gather_gofs[:2])]
+    want = [list(narrow_out)] * 6 + [list(wide_out), list(gather_out[:4])]
+    n_frames = sum(len(w) for w in want)
+
+    merged, chunks = [], []
+    real_chunked, real_device = B._dispatch_chunked, B._dispatch_device
+
+    def spy_chunked(di, device, stats=None):
+        merged.append((di.n_frames, _layout(di)))
+        return real_chunked(di, device, stats=stats)
+
+    def spy_device(di, device, stats=None):
+        chunks.append((di.n_frames, _layout(di)))
+        return real_device(di, device, stats=stats)
+
+    # the batcher's main path, counted
+    B._dispatch_chunked, B._dispatch_device = spy_chunked, spy_device
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sc.reset_launches()
+        payload.reset_launches()
+        t0 = time.perf_counter()
+        out = run_batcher(streams)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = {"K1": sc.launches, "K2W": payload.launches,
+                    "K1F": sc.full_launches}
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        B._dispatch_chunked, B._dispatch_device = real_chunked, real_device
+    n = {k: sum(1 for c in chunks if c[1] == k)
+         for k in ("narrow", "wide", "gather")}
+    print(f"batcher main path: 8 streams of 2 GOFs, {n_frames} frames in "
+          f"{first_s:.3f} s (first run), merged inputs (frames, path) "
+          f"{merged}, chunks per path {n}, launches {launches}")
+    check(sorted(merged[:3]) == [(2, "gather"), (2, "wide"), (12, "narrow")],
+          f"the first wave's merged inputs are {merged[:3]}, want the 12 "
+          f"narrow frames of streams 0-5 in one, the wide and the gather "
+          f"GOF alone")
+    first_narrow = next(i for i, c in enumerate(chunks) if c[1] == "narrow")
+    check(chunks[first_narrow:first_narrow + 6] == [(P.DEVICE_BATCH,
+                                                     "narrow")] * 6,
+          f"the 12-frame narrow input was not dispatched as 6 chunks of "
+          f"{P.DEVICE_BATCH}: {chunks}")
+    check(launches == {"K1": n["narrow"], "K2W": n["wide"],
+                       "K1F": n["wide"] + n["gather"]},
+          f"launches {launches} for {n} chunks")
+    for s, (got, ref) in enumerate(zip(out, want)):
+        check(len(got) == len(ref), f"stream {s}: {len(got)} frames, want "
+                                    f"{len(ref)}")
+        for f, (a, b) in enumerate(zip(got, ref)):
+            check(np.array_equal(a.positions, b.positions)
+                  and np.array_equal(a.colors, b.colors),
+                  f"stream {s} frame {f}: {len(a)} points differ from the "
+                  f"earlier decode's {len(b)}")
+    print(f"batcher: all {n_frames} frames of the 8 streams byte-equal to "
+          f"phases 3, 5 and 5b (peak device memory {peak / 2 ** 20:.0f} "
+          f"MiB, {smi})")
+
+    # frames/s after the counted run as warm-up, in turns with the
+    # Decoder over the same 16 GOFs one stream after another
+    flat = [g for stream in streams for g in stream]
+    runs = {"batcher": [], "Decoder": []}
+    stages = GofStats()
+    for name in ("batcher", "Decoder", "Decoder", "batcher"):
+        t0 = time.perf_counter()
+        got = (sum(len(x) for x in run_batcher(streams, stats=stages))
+               if name == "batcher" else len(decode_gofs(flat, depth=2)))
+        torch.cuda.synchronize()
+        runs[name].append(time.perf_counter() - t0)
+        check(got == n_frames, f"{name} emitted {got} frames")
+    print(f"aggregate frames/s (host clock, {n_frames} frames, {smi}): "
+          + "; ".join(f"{k}: runs {[round(x, 4) for x in v]} s, "
+                      f"{n_frames / statistics.median(v):.1f} frames/s"
+                      for k, v in runs.items())
+          + " (Decoder: pipeline_gofs=2)")
+    sec = stages.stage_seconds
+    split = {"staging": sec.get("recon_tables", 0) + sec.get("recon_stage", 0),
+             "dispatch": sec.get("recon_dispatch", 0),
+             "fetch": sec.get("recon_fetch", 0),
+             "emit": sec.get("recon_emit", 0)}
+    reps = len(runs["batcher"])
+    print(f"batcher stage split (host clock, ms per pass of {n_frames} "
+          f"frames, {smi}): " + ", ".join(
+              f"{k} {v * 1e3 / reps:.1f}" for k, v in split.items()))
+
+    # the 12-frame narrow merged input at chunks of 2, 4, 6 and 12 frames
+    cfg, tables, g_bucket = P._gof_tables_and_bucket(gofs[0])
+    di = B._concat_inputs(
+        [P._gof_device_inputs(gofs[0], gofs[0].metas, (cfg, tables),
+                              g_bucket)] * 6)
+    dev = torch.device("cuda")
+
+    def dispatch_all(chunk):
+        for i in range(0, di.n_frames, chunk):
+            reconstruct_batch_pretiled_packed(
+                *to_device(*(a[i:i + chunk] for a in di.arrays), dev),
+                di.cfg)
+
+    lines = []
+    try:
+        for chunk in (2, 4, 6, 12):
+            P.DEVICE_BATCH = chunk
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            whole = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                res = B._dispatch_chunked(di, dev)
+                whole.append(time.perf_counter() - t0)
+            check(len(res) == di.n_frames, f"chunk {chunk}: {len(res)} frames")
+            ms = event_ms(lambda: dispatch_all(chunk), reps=5, warmup=1)
+            lines.append(
+                f"chunk {chunk}: dispatch incl. H2D {ms:.3f} ms (CUDA "
+                f"events), whole {statistics.median(whole) * 1e3:.1f} ms "
+                f"(host clock, runs {[round(x * 1e3, 1) for x in whole]}), "
+                f"peak {torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
+    finally:
+        P.DEVICE_BATCH = 2
+    print(f"narrow merged input of {di.n_frames} frames by chunk size "
+          f"({smi}): " + "; ".join(lines))
+
+
+def phase_color():
+    """The colour proof on the card: ``rgb8_from_yuv16`` against the f64
+    chain over all 2^30 10-bit (y, u, v) triples."""
+    from tpu_vpcc_torch.tools import verify_color_exact
+    from tpu_vpcc_torch.tools.kernel_times import nvidia_smi_line
+
+    t0 = time.perf_counter()
+    rc = verify_color_exact.main(["--device", "cuda"])
+    check(rc == 0, "verify_color_exact found mismatches on the card")
+    print(f"colour proof: 0 mismatches in r, g and b over the whole 10-bit "
+          f"domain in {time.perf_counter() - t0:.2f} s ({nvidia_smi_line()})")
+
+
 def main() -> int:
     try:
         import torch
@@ -1251,6 +1452,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from tpu_vpcc_torch.tools.kernel_times import TimingError
 
+    t_script = time.perf_counter()
     try:
         bridge = phase_build()
         fcfg, frame_sets, gofs, S_flag = flagship_inputs()
@@ -1258,8 +1460,10 @@ def main() -> int:
         k1f_err = phase_k1f(S_flag)
         k1, narrow_out = phase_flagship(frame_sets, gofs)
         k2w_err = phase_k2w(gofs[0])
-        wide = phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err)
-        gather = phase_gather(fcfg, frame_sets, narrow_out)
+        wide, wide_gofs, wide_out = phase_wide(fcfg, frame_sets, narrow_out,
+                                               k1f_err, k2w_err)
+        gather, gather_gofs, gather_out = phase_gather(fcfg, frame_sets,
+                                                       narrow_out)
         if bridge:
             phase_stream()
         else:
@@ -1267,6 +1471,12 @@ def main() -> int:
                   "on this machine (phase 1)")
         k3 = phase_cursor(gofs[0], S_flag)
         probe_kernels = phase_probes()
+        t0 = time.perf_counter()
+        phase_batcher(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
+                      gather_out)
+        phase_color()
+        print(f"phases 9-10: {time.perf_counter() - t0:.1f} s; script so "
+              f"far: {time.perf_counter() - t_script:.1f} s")
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                         ("jax", "jaxlib", "tpu_vpcc"))
         check(not loaded, f"jax or the JAX package was imported: {loaded}")

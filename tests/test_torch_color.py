@@ -67,3 +67,64 @@ def test_g8_from_packed_on_int32_tensors():
     got = g8_from_packed(torch.from_numpy(y), torch.from_numpy(packed))
     np.testing.assert_array_equal(got.numpy(), want)
     assert (torch.tensor([-7]) // 341).item() == -1
+
+
+def test_verify_color_exact_quick_on_cpu_stays_jax_free():
+    """``python -m tpu_vpcc_torch.tools.verify_color_exact --quick 2
+    --device cpu`` in a fresh interpreter: no mismatch in r, g or b, and
+    neither jax nor tpu_vpcc loaded."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    script = """
+import runpy, sys
+sys.argv = ["verify_color_exact", "--quick", "2", "--device", "cpu"]
+try:
+    runpy.run_module("tpu_vpcc_torch.tools.verify_color_exact",
+                     run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "tpu_vpcc"))
+print("LOADED", bad)
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=root,
+        env=dict(os.environ, PYTHONPATH=str(root)),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "mismatches r=0 g=0 b=0" in proc.stdout, proc.stdout
+    assert "channel g: 2097152 triples, 0 mismatches" in proc.stdout
+    assert "LOADED []" in proc.stdout
+
+
+@pytest.mark.parametrize("table, index, channel", [
+    (0, 700, "r"), (1, 300, "b"), (2, 1024 + 300, "g"),
+], ids=["s_r", "s_b", "packed_g"])
+def test_verify_color_exact_finds_a_changed_table_entry(
+        monkeypatch, capsys, table, index, channel):
+    """The runtime conversion with one entry of one of its tables moved
+    by one: the verifier reports mismatches in that channel only and
+    exits 1."""
+    from tpu_vpcc_torch.ops import color as port_color
+    from tpu_vpcc_torch.tools import verify_color_exact
+
+    real = port_color._device_luts
+
+    def changed(device):
+        luts = [t.clone() for t in real(device)]
+        luts[table][index] += 1
+        return tuple(luts)
+
+    monkeypatch.setattr(port_color, "_device_luts", changed)
+    assert verify_color_exact.main(["--quick", "2", "--device", "cpu"]) == 1
+    out = capsys.readouterr().out
+    assert "MISMATCHES FOUND" in out
+    for name in "rgb":
+        line = next(l for l in out.splitlines()
+                    if l.startswith(f"channel {name}:"))
+        assert line.endswith(" 0 mismatches") == (name != channel), line

@@ -243,3 +243,120 @@ def test_flagship_gof_matches_reference(tiled):
     )
     ref = _ref_example_gof(cfg, ref_frames, tiled, **smoothing)
     assert canon(got) == canon(ref)
+
+
+@pytest.fixture
+def ref_inspect():
+    """``tpu_vpcc.runtime.inspect``, imported for this test alone: the
+    module binds the ``sys.stdout`` of its first import as ``inspect``'s
+    default stream, so a module left behind would write another test's
+    ``capsys`` output to this test's stream (tests/test_e2e.py's
+    ``test_inspect_tool``). Its ``sys.modules`` entry is restored after."""
+    import importlib
+    import sys
+
+    name = "tpu_vpcc.runtime.inspect"
+    before = sys.modules.pop(name, None)
+    try:
+        yield importlib.import_module(name)
+    finally:
+        sys.modules.pop(name, None)
+        if before is not None:
+            sys.modules[name] = before
+
+
+@needs_encoder
+@pytest.mark.parametrize("name", FAMILIES)
+def test_inspect_matches_reference(name, tmp_path, ref_inspect):
+    """The port's stream inspector prints the reference's text, verbose
+    patch lines included, for the same stream file."""
+    import io
+
+    from tpu_vpcc_torch.runtime import inspect as port_inspect
+
+    path = tmp_path / f"{name}.bin"
+    path.write_bytes(_stream(name))
+    got, ref = io.StringIO(), io.StringIO()
+    assert port_inspect.inspect(path, verbose=True, out=got) == 0
+    assert ref_inspect.inspect(path, verbose=True, out=ref) == 0
+    assert got.getvalue() == ref.getvalue()
+    assert "GOF 0:" in got.getvalue()
+
+
+@needs_encoder
+@pytest.mark.parametrize("name", FAMILIES)
+def test_metrics_match_reference_on_oracle_clouds(name):
+    """``d1_metric`` and ``color_psnr`` of both packages on the family's
+    oracle point clouds: the first frame against the last (or, for a
+    one-frame family, against itself moved by one along x, with every
+    third point dropped so that the colour match goes by neighbours)."""
+    from tpu_vpcc.utils import metrics as ref_metrics
+    from tpu_vpcc_torch.reconstruction.pointset import PointSet3
+    from tpu_vpcc_torch.utils import metrics as port_metrics
+
+    frames = [ps for gof in _port_gofs(name)
+              for ps in port_host._reconstruct_gof_oracle(gof)]
+    a = frames[0]
+    b = frames[-1]
+    if len(frames) == 1:
+        keep = np.arange(len(a)) % 3 != 0
+        b = PointSet3(positions=a.positions[keep] + np.uint16(1),
+                      with_colors=True)
+        b.colors = a.colors[keep]
+    for x, y in ((a, b), (b, a), (a, a)):
+        assert dataclasses.astuple(port_metrics.d1_metric(x, y)) == \
+            dataclasses.astuple(ref_metrics.d1_metric(x, y))
+        assert port_metrics.color_psnr(x, y) == ref_metrics.color_psnr(x, y)
+
+
+def _metric_cloud(pos, colors=None):
+    from tpu_vpcc_torch.reconstruction.pointset import PointSet3
+
+    ps = PointSet3(positions=np.asarray(pos, np.uint16),
+                   with_colors=colors is not None)
+    if colors is not None:
+        ps.colors = np.asarray(colors, np.uint8)
+    return ps
+
+
+def _line(n, step):
+    return np.stack([np.arange(0, n * step, step), np.zeros(n),
+                     np.zeros(n)], 1)
+
+
+@pytest.mark.parametrize("case", ["identical", "unit_offset", "cli"])
+def test_metrics_match_reference_on_metric_cases(case, tmp_path, capsys):
+    """The cases of ``tests/test_metrics.py`` through both packages: the
+    same metric values, and the same lines from the metrics CLI on PLY
+    files the port writes (ASCII and binary)."""
+    from tpu_vpcc.utils import metrics as ref_metrics
+    from tpu_vpcc_torch.utils import metrics as port_metrics
+
+    rng = np.random.default_rng(0)
+    if case == "identical":
+        a = _metric_cloud(rng.integers(0, 1024, (500, 3)),
+                          rng.integers(0, 256, (500, 3)))
+        b = a
+    elif case == "unit_offset":
+        a = _metric_cloud(_line(100, 10))
+        b = _metric_cloud(_line(100, 10) + [1, 0, 0])
+    else:
+        a = _metric_cloud(_line(200, 10), np.full((200, 3), 100))
+        b = _metric_cloud(_line(200, 10) + [1, 0, 0], np.full((200, 3), 100))
+        port_ply.write_ply(a, tmp_path / "a.ply")
+        port_ply.write_ply(b, tmp_path / "b.ply", fmt="binary_little_endian")
+        args = [str(tmp_path / "a.ply"), str(tmp_path / "b.ply")]
+        assert port_metrics.main(args) == 0
+        got = capsys.readouterr().out
+        assert ref_metrics.main(args) == 0
+        assert got == capsys.readouterr().out
+        assert "mse=1.000000" in got and "r=inf g=inf b=inf" in got
+    m = port_metrics.d1_metric(a, b)
+    assert dataclasses.astuple(m) == \
+        dataclasses.astuple(ref_metrics.d1_metric(a, b))
+    if a.with_colors:
+        assert port_metrics.color_psnr(a, b) == ref_metrics.color_psnr(a, b)
+    if case == "identical":
+        assert m.mse == 0 and m.psnr == float("inf")
+    else:
+        assert m.mse_ab == m.mse_ba == 1.0

@@ -1,10 +1,11 @@
 """Command-line decoder on PyTorch.
 
     python -m tpu_vpcc_torch.runtime.cli -i stream.bin -o out_dir/ [--device cuda|cpu]
+    python -m tpu_vpcc_torch.runtime.cli -i a.bin -i b.bin -o out_dir/
 
 The flags are ``tpu_vpcc.runtime.cli``'s, plus ``--device``, minus the
 no-op ``-d`` and ``--keep-intermediate-files``. Several ``-i`` inputs
-(the multi-stream batcher) are not ported yet (ROADMAP queue 1 item 4).
+decode through the multi-stream batcher into one directory per stream.
 """
 
 from __future__ import annotations
@@ -17,6 +18,78 @@ from pathlib import Path
 from ..utils.ply import frame_output_path, write_ply
 
 
+def _main_multistream(args, out: Path) -> int:
+    """Decode several streams in shared device batches (BASELINE config 5).
+
+    Frames land in per-stream subdirectories of the output folder, named
+    after each input's stem (suffixed with the stream index on collision).
+    Framework extension: the reference CLI decodes exactly one stream.
+    """
+    from ..parallel.batcher import decode_streams_batched
+    from .pipeline import Params
+
+    paths = args.compressed_stream_paths
+    if "%4d" in out.name:
+        print("error: %4d-patterned output paths require a single -i",
+              file=sys.stderr)
+        return 2
+    stems = [p.stem for p in paths]
+    names = []
+    seen = set()
+    for stem in stems:
+        # unique per-stream directory even when stems repeat or a literal
+        # stem collides with a de-duplicated name
+        name, k = (stem if stems.count(stem) == 1 else f"{stem}.0"), 0
+        while name in seen:
+            k += 1
+            name = f"{stem}.{k}"
+        seen.add(name)
+        names.append(name)
+    dirs = []
+    for name in names:
+        d = out / name
+        d.mkdir(parents=True, exist_ok=True)
+        dirs.append(d)
+
+    params = Params(
+        paths[0],  # carried for option plumbing; the batcher opens each path
+        use_device=not args.oracle,
+        num_threads=args.num_threads,
+        apply_geo_smoothing_type=args.apply_geo_smoothing,
+        apply_attr_smoothing_type=args.apply_attr_smoothing,
+        apply_occupancy_synthesis_type=args.apply_occupancy_synthesis,
+        device=args.device,
+    )
+    n_frames = 0
+    n_points = 0
+    try:
+        for stream_idx, frame_idx, frame in decode_streams_batched(
+            paths, params=params
+        ):
+            frame_num = frame_idx + args.start_frame
+            path = frame_output_path(dirs[stream_idx], frame_num)
+            write_ply(frame, path, fmt=args.ply_format)
+            n_frames += 1
+            n_points += len(frame)
+            logging.info(
+                "Stream %d frame %d written to %s (%d points)",
+                stream_idx, frame_num, path, len(frame),
+            )
+    except FileNotFoundError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    except Exception as e:
+        if args.verbose:
+            raise
+        print(f"error: decode failed: {e}", file=sys.stderr)
+        return 1
+    logging.info(
+        "decoded %d frames, %d points total across %d streams",
+        n_frames, n_points, len(paths),
+    )
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="An MPEG-VPCC-TMC2 conformant decoder (PyTorch)"
@@ -24,7 +97,8 @@ def main(argv=None) -> int:
     parser.add_argument(
         "-i", "--compressed-stream-path", required=True, type=Path,
         action="append", dest="compressed_stream_paths",
-        help="Path to the compressed bitstream input",
+        help="Path to the compressed bitstream input; repeat to decode "
+             "several streams in shared device batches",
     )
     parser.add_argument(
         "-o", "--reconstructed-data-path", required=True, type=Path,
@@ -55,18 +129,16 @@ def main(argv=None) -> int:
     )
     print("PccAppDecoder (tpu_vpcc_torch)")
 
-    if len(args.compressed_stream_paths) > 1:
-        print("error: several -i inputs need the multi-stream batcher, not "
-              "yet ported (ROADMAP queue 1 item 4)", file=sys.stderr)
-        return 2
-
-    from .pipeline import Decoder, Params
-
     out = args.reconstructed_data_path
     if "%4d" not in out.name:
         out.mkdir(parents=True, exist_ok=True)
     else:
         out.parent.mkdir(parents=True, exist_ok=True)
+
+    if len(args.compressed_stream_paths) > 1:
+        return _main_multistream(args, out)
+
+    from .pipeline import Decoder, Params
 
     try:
         decoder = Decoder(

@@ -1,7 +1,8 @@
 """Tool entry points of the port: the cursor compaction experiment
-(``compaction_experiment``) and the Hopper probes (``hopper_probe``,
-``hopper_probe2``, ``hopper_probe3``), each the counterpart of a script in
-the repository's ``tools/``. Run each with ``python -m``."""
+(``compaction_experiment``), the Hopper probes (``hopper_probe``,
+``hopper_probe2``, ``hopper_probe3``) and the colour proof
+(``verify_color_exact``), each the counterpart of a script in the
+repository's ``tools/``. Run each with ``python -m``."""
 
 
 def resolve_device(name: str):

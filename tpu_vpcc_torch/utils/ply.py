@@ -100,6 +100,70 @@ def _format_ply_binary(ps: PointSet3) -> bytes:
 _ply_lib = None  # bound once; per-frame writes skip the ctypes setup
 
 
+def read_ply(data: bytes) -> PointSet3:
+    """Parse both formats this module writes (testing / tooling aid).
+
+    Extra vertex properties beyond xyz/rgb (secondary attributes) come
+    back one per ``extra_attrs`` entry as ``((name,), (n, 1) array)`` —
+    the per-attribute channel grouping the writer had is not recorded
+    in the PLY header."""
+    end = data.index(b"end_header\n") + len(b"end_header\n")
+    header = data[:end].decode().splitlines()
+    body = data[end:]
+    n = 0
+    binary = False
+    props = []  # (ply_type, name) of the vertex element
+    in_vertex = False
+    for line in header:
+        if line.startswith("format binary_little_endian"):
+            binary = True
+        elif line.startswith("element vertex"):
+            n = int(line.split()[-1])
+            in_vertex = True
+        elif line.startswith("element "):
+            in_vertex = False
+        elif in_vertex and line.startswith("property "):
+            _, t, name = line.split()
+            props.append((t, name))
+    names = [name for _t, name in props]
+    assert names[:3] == ["x", "y", "z"], names
+    has_colors = names[3:6] == ["red", "green", "blue"]
+    extra_props = props[6:] if has_colors else props[3:]
+    ps = PointSet3(with_colors=has_colors)
+    if n == 0:
+        return ps
+    np_type = {"uchar": "u1", "ushort": "<u2", "uint": "<u4"}
+    if binary:
+        fields = [("xyz", np_type[props[0][0]], 3)]
+        if has_colors:
+            fields.append(("rgb", "u1", 3))
+        fields += [
+            (f"e{i}", np_type[t], 1) for i, (t, _name) in enumerate(extra_props)
+        ]
+        rec = np.frombuffer(body, dtype=fields, count=n)
+        ps.positions = rec["xyz"].astype(np.uint16)
+        if has_colors:
+            ps.colors = rec["rgb"].copy()
+        for i, (_t, name) in enumerate(extra_props):
+            ps.extra_attrs.append(((name,), rec[f"e{i}"].copy()))
+    else:
+        vals = np.loadtxt(io.BytesIO(body), dtype=np.int64, max_rows=n, ndmin=2)
+        ps.positions = vals[:, :3].astype(np.uint16)
+        col0 = 3
+        if has_colors:
+            ps.colors = vals[:, 3:6].astype(np.uint8)
+            col0 = 6
+        for i, (t, name) in enumerate(extra_props):
+            dt = np.uint8 if t == "uchar" else np.uint16
+            ps.extra_attrs.append(
+                ((name,), vals[:, col0 + i : col0 + i + 1].astype(dt))
+            )
+    return ps
+
+
+_ply_lib = None  # bound once; per-frame writes skip the ctypes setup
+
+
 def _format_body_native(ps: PointSet3):
     """Fast ASCII body via the native bridge (~90x np.savetxt)."""
     global _ply_lib
