@@ -101,7 +101,22 @@ failure:
      H2D, host clock for the whole);
  10. the colour proof: ``tools.verify_color_exact`` runs
      ``rgb8_from_yuv16`` against the f64 chain over all 2^30 10-bit
-     (y, u, v) triples on the card, 0 mismatches required.
+     (y, u, v) triples on the card, 0 mismatches required;
+ 11. the device mesh (``parallel.mesh``, ``parallel.spatial``): phase 3's
+     narrow GOFs, phase 5's smoothed and 45-degree GOFs and phase 5b's
+     GOF R through ``Decoder.start_gofs`` with ``Params(mesh=...)`` on
+     the layouts (data 1, space 4) and (2, 2) with ``cuda:0`` named four
+     times, and, on a machine with four cards, (1, 4), (2, 2) and (4, 1)
+     over four distinct cards. Every frame byte-equal to its meshless
+     decode; the K1, K2W and K1F launch counters, set to 0 before each
+     decode, read shards x chunks on the tiled GOFs, and GOF R takes the
+     reference's counted fallback (``mesh_fallback_dispatches``, one
+     K1F launch per chunk); smoothing moved the same points as in phase
+     5. ``reconstruct_gof_spatial`` and ``reconstruct_batch_data_parallel``
+     at GOF R's shape stitch to the unsharded gather. Then the host clock
+     of a narrow and a wide dispatch with and without the mesh, the
+     times and bytes of ``combine_stats`` on the smoothing GOF's grids,
+     the peak memory of each device and the phase's seconds.
 
 A kernel's times (``tools.kernel_times.measure``): its device-only time
 (the work the card ran, from a whole ``torch.profiler`` trace of 20
@@ -119,6 +134,13 @@ queued time.
 The last line is ``{"ok": true, "device": {...}}``; before it come one
 JSON line of per-kernel results and the ``nvidia-smi`` name and power
 limit line.
+
+    python3 chip_smoke.py --mesh-only
+
+runs phase 1's builds, the meshless decodes of the GOFs phase 11 uses
+(without their oracle checks and timings, which the full run makes) and
+phase 11, then the ``nvidia-smi`` and ``ok`` lines: the run for a
+machine with four cards.
 """
 
 from __future__ import annotations
@@ -373,6 +395,40 @@ def flagship_inputs():
     return fcfg, frame_sets, gofs, g_bucket * cfg.slots_per_block
 
 
+def frames_45(fcfg):
+    """Phase 5's 45-degree frames: seeds 4-5, a third of the patches on
+    45-degree views."""
+    from tpu_vpcc_torch.models.flagship import example_frames
+
+    return example_frames(fcfg, seed=4, views45=1 / 3)
+
+
+def frames_rotated(fcfg):
+    """Phase 5b's GOF R frames: seeds 6-7, a third of the patches turned
+    to rotated orientations."""
+    from tpu_vpcc_torch.models.flagship import example_frames
+
+    return example_frames(fcfg, seed=6, rotated=1 / 3)
+
+
+def mesh_only_inputs(fcfg, frame_sets, gofs):
+    """``--mesh-only``: the GOFs of phases 3, 5 and 5b that phase 11
+    decodes (the same seeds and options) and their meshless decodes on
+    the card, which the full run holds equal to the oracle."""
+    from tpu_vpcc_torch.models.flagship import (
+        ATTR_SMOOTHING,
+        GEO_SMOOTHING,
+        example_gof,
+    )
+
+    wide_gofs = [example_gof(fcfg, frame_sets[0], geo_smoothing=GEO_SMOOTHING,
+                             attr_smoothing=ATTR_SMOOTHING),
+                 example_gof(fcfg, frames_45(fcfg))]
+    gather_gofs = [example_gof(fcfg, frames_rotated(fcfg))]
+    return (wide_gofs, gather_gofs,
+            *(decode_gofs(g, depth=2) for g in (gofs, wide_gofs, gather_gofs)))
+
+
 def decode_gofs(gofs, depth: int):
     """The public entry: ``Decoder.start_gofs`` on the card with
     ``depth`` GOFs reconstructing at once; the frames, in order."""
@@ -621,7 +677,7 @@ def phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err):
     dev = torch.device("cuda")
     smooth = dict(geo_smoothing=GEO_SMOOTHING, attr_smoothing=ATTR_SMOOTHING)
     t0 = time.perf_counter()
-    frames45 = example_frames(fcfg, seed=4, views45=1 / 3)
+    frames45 = frames_45(fcfg)
     n45 = sum(p.axis_of_additional_plane != 0
               for sf in frames45 for p in sf.meta.patches)
     n_all = sum(len(sf.meta.patches) for sf in frames45)
@@ -812,7 +868,7 @@ def phase_gather(fcfg, frame_sets, narrow_out):
     smi = nvidia_smi_line()
     smooth = dict(geo_smoothing=GEO_SMOOTHING, attr_smoothing=ATTR_SMOOTHING)
     t0 = time.perf_counter()
-    frames_r = example_frames(fcfg, seed=6, rotated=1 / 3)
+    frames_r = frames_rotated(fcfg)
     specs = {  # GOF: (frames, example_gof options)
         "R": (frames_r, {}),
         "W": (frame_sets[0], {"geometry_bits": 12}),
@@ -1305,13 +1361,13 @@ def phase_batcher(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
     merged, chunks = [], []
     real_chunked, real_device = B._dispatch_chunked, B._dispatch_device
 
-    def spy_chunked(di, device, stats=None):
+    def spy_chunked(di, device, stats=None, mesh=None):
         merged.append((di.n_frames, _layout(di)))
-        return real_chunked(di, device, stats=stats)
+        return real_chunked(di, device, stats=stats, mesh=mesh)
 
-    def spy_device(di, device, stats=None):
+    def spy_device(di, device, stats=None, mesh=None):
         chunks.append((di.n_frames, _layout(di)))
-        return real_device(di, device, stats=stats)
+        return real_device(di, device, stats=stats, mesh=mesh)
 
     # the batcher's main path, counted
     B._dispatch_chunked, B._dispatch_device = spy_chunked, spy_device
@@ -1435,6 +1491,270 @@ def phase_color():
           f"domain in {time.perf_counter() - t0:.2f} s ({nvidia_smi_line()})")
 
 
+def _same_frames(a, b) -> bool:
+    import numpy as np
+
+    return (a.positions.shape == b.positions.shape
+            and np.array_equal(a.positions, b.positions)
+            and np.array_equal(a.colors, b.colors))
+
+
+def _moved(smoothed, plain):
+    """Positions and colours smoothing moved: rows that differ."""
+    pos = sum(int((a.positions != b.positions).any(axis=1).sum())
+              for a, b in zip(smoothed, plain))
+    col = sum(int((a.colors != b.colors).any(axis=1).sum())
+              for a, b in zip(smoothed, plain))
+    return pos, col
+
+
+def phase_mesh(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
+               gather_out):
+    """Phase 11, the device mesh (see the module note): phase 3's narrow
+    GOFs, phase 5's smoothed and 45-degree GOFs and phase 5b's GOF R
+    through ``Decoder.start_gofs`` with ``Params(mesh=...)``, counted and
+    byte-equal to their meshless decodes; the gather drivers against the
+    unsharded gather at GOF R's shape; dispatch and ``combine_stats``
+    times, peak memory per device."""
+    import numpy as np
+    import torch
+
+    from tpu_vpcc_torch.ops import payload
+    from tpu_vpcc_torch.ops import shift_compact as sc
+    from tpu_vpcc_torch.ops import smoothing as S
+    from tpu_vpcc_torch.ops.reconstruct import reconstruct_batch
+    from tpu_vpcc_torch.ops.tiled import (
+        _unpack_ops_points,
+        gather_inputs_to_device,
+    )
+    from tpu_vpcc_torch.parallel.mesh import (
+        make_mesh,
+        pad_batch,
+        reconstruct_batch_data_parallel,
+    )
+    from tpu_vpcc_torch.parallel.spatial import (
+        reconstruct_gof_spatial,
+        stitch_spatial,
+    )
+    from tpu_vpcc_torch.runtime import pipeline as P
+    from tpu_vpcc_torch.runtime.pipeline import Decoder, Params
+    from tpu_vpcc_torch.tools.kernel_times import event_ms, nvidia_smi_line
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    card0 = torch.device("cuda", 0)
+    layouts = [("cuda:0 named 4 times", [card0] * 4, 1, 4),
+               ("cuda:0 named 4 times", [card0] * 4, 2, 2)]
+    if torch.cuda.device_count() >= 4:
+        cards = [torch.device("cuda", i) for i in range(4)]
+        layouts += [("4 distinct cards", cards, d, s)
+                    for d, s in ((1, 4), (2, 2), (4, 1))]
+    sets = {  # name: (GOFs, their meshless decode)
+        "narrow": (list(gofs), list(narrow_out)),
+        "wide": (list(wide_gofs), list(wide_out)),
+        "gather R": (list(gather_gofs[:1]), list(gather_out[:2])),
+    }
+    n_sm = len(wide_gofs[0].metas)
+    moved_want = _moved(wide_out[:n_sm], narrow_out[:n_sm])
+    print(f"phase 11: the mesh on {torch.cuda.device_count()} card(s), "
+          f"layouts {[(lbl, d, s) for lbl, _, d, s in layouts]}; phase 5's "
+          f"smoothing moved {moved_want[0]} positions and {moved_want[1]} "
+          f"colours")
+
+    # GOF R's gather arrays, bucketed to a multiple of every 'space' size
+    gof_r = gather_gofs[0]
+    cfg, tables, g_bucket = P._gof_tables_and_bucket(gof_r, 4)
+    di_r = P._gof_device_inputs(gof_r, gof_r.metas, (cfg, tables), g_bucket)
+    check(not di_r.use_tiled, "GOF R would take a tiled path")
+    ops, cnt_t = reconstruct_batch(
+        *gather_inputs_to_device(*di_r.arrays, card0), di_r.cfg)
+    pos_t, col_t = _unpack_ops_points(ops, "gather")
+    unsharded_cnt = cnt_t.cpu().numpy()
+    unsharded = [(P._u16_host(pos_t[k, :n]), P._u16_host(col_t[k, :n]))
+                 for k, n in enumerate(unsharded_cnt)]
+    # the narrow GOF 0 and the smoothed GOF staged for the dispatch timings
+    staged = {}
+    for name, g in (("narrow", gofs[0]), ("wide", wide_gofs[0])):
+        cfg_g, tables_g, bucket = P._gof_tables_and_bucket(g, 4)
+        staged[name] = P._gof_device_inputs(g, g.metas, (cfg_g, tables_g),
+                                            bucket)
+
+    real_combine = S.combine_stats
+    for label, devs, data, space in layouts:
+        mesh = make_mesh(devs, data=data, space=space)
+        distinct = list(dict.fromkeys(devs))
+        where = f"({data}, {space}) on {label}"
+
+        def sync():
+            for d in distinct:
+                torch.cuda.synchronize(d)
+
+        for d in distinct:
+            torch.cuda.reset_peak_memory_stats(d)
+        # the mesh main path, counted: each set decoded with the counts
+        # set to 0 just before and read just after
+        for name, (set_gofs, want) in sets.items():
+            chunk = P.DEVICE_BATCH * (1 if name == "gather R" else data)
+            chunks = sum(-(-len(g.metas) // chunk) for g in set_gofs)
+            sync()
+            sc.reset_launches()
+            payload.reset_launches()
+            t0 = time.perf_counter()
+            dec = Decoder(Params(device="cuda", mesh=mesh))
+            dec.start_gofs(set_gofs)
+            out = list(dec)
+            sync()
+            secs = time.perf_counter() - t0
+            launches = {"K1": sc.launches, "K2W": payload.launches,
+                        "K1F": sc.full_launches}
+            fallbacks = dec.stats.counter_totals().get(
+                "mesh_fallback_dispatches", 0)
+            shards = data * space
+            expect = {
+                "narrow": {"K1": shards * chunks, "K2W": 0, "K1F": 0},
+                "wide": {"K1": 0, "K2W": shards * chunks,
+                         "K1F": shards * chunks},
+                "gather R": {"K1": 0, "K2W": 0, "K1F": chunks},
+            }[name]
+            check(launches == expect,
+                  f"{where}, {name}: launches {launches}, want {expect} "
+                  f"({shards} shards x {chunks} chunks)")
+            check((fallbacks >= 1) == (name == "gather R"),
+                  f"{where}, {name}: {fallbacks} mesh fallback dispatches")
+            check(len(out) == len(want), f"{where}, {name}: {len(out)} "
+                                         f"frames for {len(want)}")
+            for k, (a, b) in enumerate(zip(out, want)):
+                check(_same_frames(a, b) and len(a) > 0,
+                      f"{where}, {name} frame {k}: {len(a)} points differ "
+                      f"from the meshless decode's {len(b)}")
+            line = (f"mesh {where}: {name}, {len(set_gofs)} GOFs, "
+                    f"{len(out)} frames byte-equal to the meshless decode "
+                    f"in {secs:.3f} s, launches {launches} = {shards} shards "
+                    f"x {chunks} chunks, mesh_fallback_dispatches "
+                    f"{fallbacks}")
+            if name == "wide":
+                moved = _moved(out[:n_sm], narrow_out[:n_sm])
+                check(moved == moved_want and moved[0] > 0,
+                      f"{where}: smoothing moved {moved}, phase 5 "
+                      f"{moved_want}")
+                line += (f", smoothing moved {moved[0]} positions and "
+                         f"{moved[1]} colours as in phase 5")
+            print(line)
+
+        # the gather drivers at GOF R's shape against the unsharded gather
+        arrays = [pad_batch(a, data) for a in di_r.arrays]
+        s_loc = g_bucket // space * cfg.slots_per_block
+        before = sc.full_launches
+        pos, col, cnt, tot = reconstruct_gof_spatial(mesh, *arrays, di_r.cfg)
+        spatial_launches = sc.full_launches - before
+        dp_pos, dp_col, dp_cnt = reconstruct_batch_data_parallel(
+            mesh, *arrays, di_r.cfg)
+        for k, (up, uc) in enumerate(unsharded):
+            gp, gc = stitch_spatial(pos[k], col[k], cnt[k], s_loc)
+            n = len(up)
+            check(int(tot[k, 0]) == n and np.array_equal(gp, up)
+                  and np.array_equal(gc, uc),
+                  f"{where}: reconstruct_gof_spatial frame {k} stitches to "
+                  f"{len(gp)} points, unsharded {n}")
+            check(int(dp_cnt[k]) == n and np.array_equal(dp_pos[k, :n], up)
+                  and np.array_equal(dp_col[k, :n], uc),
+                  f"{where}: reconstruct_batch_data_parallel frame {k} "
+                  f"differs from the unsharded gather")
+        print(f"mesh {where}: reconstruct_gof_spatial (counts "
+              f"{cnt.tolist()}, {spatial_launches} K1F launches) and "
+              f"reconstruct_batch_data_parallel equal the unsharded gather "
+              f"at GOF R's shape ({g_bucket} groups, totals "
+              f"{tot[:, 0].tolist()})")
+
+        # the host clock of a dispatch with and without the mesh, in turns
+        disp = []
+        for name, di in staged.items():
+            runs = {"meshless": [], "mesh": []}
+            for which in ("meshless", "mesh", "mesh", "meshless",
+                          "meshless", "mesh"):
+                sync()
+                t0 = time.perf_counter()
+                P._dispatch_device(di, card0, mesh=(
+                    mesh if which == "mesh" else None))
+                sync()
+                runs[which].append(time.perf_counter() - t0)
+            disp.append(f"{name} " + ", ".join(
+                f"{w} {statistics.median(v) * 1e3:.2f} ms (runs "
+                f"{[round(x * 1e3, 2) for x in v]})"
+                for w, v in runs.items()))
+        print(f"mesh {where}: dispatch of {len(staged['narrow'].arrays[0])} "
+              f"frames incl. staging's H2D and fetch (host clock, {smi}): "
+              + "; ".join(disp))
+
+        # combine_stats on the smoothing GOF's geometry grids of every shard
+        captured = []
+
+        def capture(stats, devices):
+            if not captured:
+                captured.append((stats, devices))
+            return real_combine(stats, devices)
+
+        S.combine_stats = capture
+        try:
+            P._dispatch_device(staged["wide"], card0, mesh=mesh)
+        finally:
+            S.combine_stats = real_combine
+        stats, cdevs = captured[0]
+        one = sum(t.numel() * t.element_size() for t in stats[0])
+        n_out = len(dict.fromkeys(cdevs))
+        ev = event_ms(lambda: real_combine(stats, cdevs), reps=10)
+        host = []
+        for _ in range(5):
+            sync()
+            t0 = time.perf_counter()
+            real_combine(stats, cdevs)
+            sync()
+            host.append(time.perf_counter() - t0)
+        print(f"mesh {where}: combine_stats of {len(stats)} shards' geometry "
+              f"grids, {one:,} B a shard ({len(stats[0])} int32 grids of "
+              f"{stats[0][0].numel():,} cells): reads {one * len(stats):,} "
+              f"B, writes {one * n_out:,} B; {ev:.4f} ms (CUDA events on "
+              f"{cdevs[0]}), {statistics.median(host) * 1e3:.3f} ms (host "
+              f"clock, all devices synchronised), {smi}")
+        print(f"mesh {where}: peak device memory "
+              + ", ".join(f"{d} {torch.cuda.max_memory_allocated(d) / 2 ** 20:.0f}"
+                          f" MiB" for d in distinct))
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+
+
+def _ok_lines(smi: str) -> None:
+    import torch
+
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+
+
+def mesh_only(t_script) -> int:
+    """``python3 chip_smoke.py --mesh-only``: the builds, the meshless
+    decodes phase 11 compares with, and phase 11; for a machine with
+    four cards, where the other phases would only repeat the one-card
+    run."""
+    from tpu_vpcc_torch.tools.kernel_times import TimingError, nvidia_smi_line
+
+    try:
+        phase_build()
+        fcfg, frame_sets, gofs, _ = flagship_inputs()
+        wide_gofs, gather_gofs, narrow_out, wide_out, gather_out = \
+            mesh_only_inputs(fcfg, frame_sets, gofs)
+        phase_mesh(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
+                   gather_out)
+        print(f"script: {time.perf_counter() - t_script:.1f} s")
+    except (SmokeFailure, TimingError) as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    _ok_lines(nvidia_smi_line())
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -1453,6 +1773,12 @@ def main() -> int:
     from tpu_vpcc_torch.tools.kernel_times import TimingError
 
     t_script = time.perf_counter()
+    if sys.argv[1:] == ["--mesh-only"]:
+        return mesh_only(t_script)
+    if sys.argv[1:]:
+        print(f"FAIL: unknown arguments {sys.argv[1:]} (none, or --mesh-only)",
+              file=sys.stderr)
+        return 1
     try:
         bridge = phase_build()
         fcfg, frame_sets, gofs, S_flag = flagship_inputs()
@@ -1477,6 +1803,9 @@ def main() -> int:
         phase_color()
         print(f"phases 9-10: {time.perf_counter() - t0:.1f} s; script so "
               f"far: {time.perf_counter() - t_script:.1f} s")
+        phase_mesh(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
+                   gather_out)
+        print(f"script so far: {time.perf_counter() - t_script:.1f} s")
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                         ("jax", "jaxlib", "tpu_vpcc"))
         check(not loaded, f"jax or the JAX package was imported: {loaded}")
@@ -1489,12 +1818,7 @@ def main() -> int:
     kernels = [dict(k, card=k.get("card", smi))
                for k in [k1] + wide + [gather, k3] + probe_kernels]
     print(json.dumps({"kernels": kernels}))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
+    _ok_lines(smi)
     return 0
 
 

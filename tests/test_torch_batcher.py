@@ -84,9 +84,9 @@ def spy_on(monkeypatch, name):
     calls = []
     real = getattr(batcher, name)
 
-    def spy(di, device, stats=None):
+    def spy(di, device, stats=None, mesh=None):
         calls.append((di.n_frames, _layout(di), di.color_mode, di.group_cap))
-        return real(di, device, stats=stats)
+        return real(di, device, stats=stats, mesh=mesh)
 
     monkeypatch.setattr(batcher, name, spy)
     return calls

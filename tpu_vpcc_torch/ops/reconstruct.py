@@ -6,7 +6,9 @@ Counterpart of ``tpu_vpcc.ops.reconstruct``: ``FrameConfig``/
 compaction policy fields are not ported), ``apply_inverse_rot45`` and
 ``reconstruct_batch``, the dispatch of frames the tiled paths cannot
 take (rotated orientations, samples wider than 10 bits, configurations
-``tiled.tiled_supported`` rejects).
+``tiled.tiled_supported`` rejects), and the single-frame drivers that
+``parallel.spatial`` shards over the mesh's 'space' axis
+(``compute_slots``, ``reconstruct_slot_range``, ``reconstruct_frame``).
 
 The gather fallback reads the raster planes at each slot's pixel, as
 the reference's ``_flat_batch_impl`` does: plain PyTorch slot math on
@@ -15,6 +17,8 @@ compaction ``shift_compact_full`` (kernel K1F on a CUDA tensor). The
 reference's ``(F*S, N_GROUP_FIELDS)`` row gather of the group table
 becomes a broadcast of ``(F, G, 1)`` field columns against the
 ``res*res*2`` slots of a group, so no per-slot field rows are made.
+:func:`gather_words` and :func:`compute_slots` share one copy of the
+point math (``_slot_points``).
 """
 
 from __future__ import annotations
@@ -62,6 +66,11 @@ class FrameConfig:
         """Canvas blocks: the group-axis capacity."""
         res = self.occupancy_resolution
         return (self.height // res) * (self.width // res)
+
+    @property
+    def s_cap(self) -> int:
+        """Slots of a full group table: ``g_cap * slots_per_block``."""
+        return self.g_cap * self.slots_per_block
 
 
 def make_config(
@@ -152,42 +161,23 @@ def _sample(plane, index):
     return plane.reshape(-1)[index].to(torch.int32) & 0xFFFF
 
 
-def gather_words(fields, occ, geo0, geo1, ay, au, av, cfg: FrameConfig):
-    """The gather fallback's slot math: the counterpart of
-    ``tpu_vpcc.ops.reconstruct._flat_batch_impl`` up to its compaction.
-
-    Inputs, each with a leading frame axis, on one device: ``fields``
-    (F, G, N_GROUP_FIELDS) int32 (G may be bucketed), ``occ`` (F, H/prec,
-    W/prec) uint8, ``geo0``/``geo1`` (F, H, W) and ``ay`` (F, M, H, W),
-    ``au``/``av`` (F, M, H >> chroma_shift, W >> chroma_shift), the u16
-    planes as int16 bit patterns. Slot ``s`` of a frame is group ``s //
-    (2 res²)``, patch pixel ``(u1, v1)`` in raster order, map ``s % 2``.
-    Returns ``(w0, w1, w2, valid)``, each (F, G * 2 * res²) in emission
-    order: ``w0 = x | y << 16``, ``w1 = z | cy << 16``, ``w2 = cu | cv <<
-    16`` as int32 bit patterns (all 16 bits of a sample kept), ``valid``
-    bool."""
-    from .smoothing import smooth_colors_flat, smooth_flat
-    from .tiled import _pack16
-
-    _check_gather(fields, occ, geo0, geo1, ay, au, av, cfg)
-    F, Gb = fields.shape[0], fields.shape[1]
-    res, spb = cfg.occupancy_resolution, cfg.slots_per_block
+def _slot_points(col, u1, v1, i_map, f, occ, geo0, geo1, ay, au, av,
+                 cfg: FrameConfig):
+    """The point math of the gather drivers, shared by
+    :func:`gather_words` and :func:`compute_slots` (the reference keeps
+    one copy in each of ``_flat_batch_impl`` and ``compute_slots``; here
+    there is one). ``col(idx)`` gives each slot's group field (any shape
+    that broadcasts against the slot coordinates ``u1``, ``v1`` and
+    ``i_map``, int32), ``f`` its frame (int64, broadcastable), and the
+    planes carry a leading frame axis (see :func:`gather_words`).
+    Returns ``([x, y, z], cy, cu, cv, valid)``: the 16-bit components
+    (inverse 45-degree rotation applied, before any smoothing), the
+    16-bit samples at the point's unsmoothed pixel, int32, and bool
+    validity."""
     H, W, M = cfg.height, cfg.width, cfg.map_count
     Hp, Wp = occ.shape[1], occ.shape[2]
     H2, W2 = au.shape[2], au.shape[3]
     prec, csh = cfg.occupancy_precision, cfg.chroma_shift
-    dev = fields.device
-
-    # slot decomposition within a group (constant divisors)
-    r = torch.arange(spb, dtype=torch.int32, device=dev)
-    v1 = r // (res * 2)
-    r2 = r - v1 * (res * 2)
-    u1 = r2 // 2
-    i_map = r2 - u1 * 2
-    f = torch.arange(F, dtype=torch.int64, device=dev).view(F, 1, 1)
-
-    def col(idx):
-        return fields[:, :, idx : idx + 1]  # (F, G, 1), broadcast over slots
 
     # the group's affine pixel, clipped to the canvas
     xs = (col(G.G_X00) + col(G.G_A) * u1 + col(G.G_B) * v1).clamp(0, W - 1)
@@ -241,32 +231,67 @@ def gather_words(fields, occ, geo0, geo1, ay, au, av, cfg: FrameConfig):
             *pos, col(G.G_PLANE), cfg.geometry_bitdepth_3d
         ))
 
-    smoothing = cfg.smoothing is not None or cfg.attr_smoothing is not None
-    if smoothing:
-        frame = f.expand(F, Gb, spb)
-        pid = col(G.G_PATCH).expand(F, Gb, spb)
-    if cfg.smoothing is not None:
-        pos = list(smooth_flat(*pos, valid, pid, frame, F, cfg.smoothing))
-
     # colours at the unsmoothed pixel, from map clip(i_map, 0, M - 1)
     zf = f * M + i_map.clamp(0, M - 1)
     cy = _sample(ay, (zf * H + ys) * W + xs)
     chroma = (zf * H2 + (ys >> csh)) * W2 + (xs >> csh)
-    cu = _sample(au, chroma)
-    cv = _sample(av, chroma)
+    return pos, cy, _sample(au, chroma), _sample(av, chroma), valid
+
+
+def _words(x, y, z, cy, cu, cv, shape):
+    """The gather layout's three words ``x | y << 16``, ``z | cy << 16``,
+    ``cu | cv << 16`` of ``shape`` (the reference's u16 casts keep the
+    low 16 bits of each value)."""
+    from .tiled import _pack16
+
+    def word(lo, hi):
+        return _pack16(lo.reshape(shape) & 0xFFFF, hi.reshape(shape) & 0xFFFF)
+
+    return word(x, y), word(z, cy), word(cu, cv)
+
+
+def gather_words(fields, occ, geo0, geo1, ay, au, av, cfg: FrameConfig):
+    """The gather fallback's slot math: the counterpart of
+    ``tpu_vpcc.ops.reconstruct._flat_batch_impl`` up to its compaction.
+
+    Inputs, each with a leading frame axis, on one device: ``fields``
+    (F, G, N_GROUP_FIELDS) int32 (G may be bucketed), ``occ`` (F, H/prec,
+    W/prec) uint8, ``geo0``/``geo1`` (F, H, W) and ``ay`` (F, M, H, W),
+    ``au``/``av`` (F, M, H >> chroma_shift, W >> chroma_shift), the u16
+    planes as int16 bit patterns. Slot ``s`` of a frame is group ``s //
+    (2 res²)``, patch pixel ``(u1, v1)`` in raster order, map ``s % 2``.
+    Returns ``(w0, w1, w2, valid)``, each (F, G * 2 * res²) in emission
+    order: ``w0 = x | y << 16``, ``w1 = z | cy << 16``, ``w2 = cu | cv <<
+    16`` as int32 bit patterns (all 16 bits of a sample kept), ``valid``
+    bool."""
+    from .smoothing import smooth_colors_flat, smooth_flat
+
+    _check_gather(fields, occ, geo0, geo1, ay, au, av, cfg)
+    F, Gb = fields.shape[0], fields.shape[1]
+    spb = cfg.slots_per_block
+    dev = fields.device
+
+    # the slots of one group, broadcast against every group's fields
+    _, v1, u1, i_map = _slot_indices(cfg, 0, spb, dev)
+    f = torch.arange(F, dtype=torch.int64, device=dev).view(F, 1, 1)
+
+    def col(idx):
+        return fields[:, :, idx : idx + 1]  # (F, G, 1), broadcast over slots
+
+    pos, cy, cu, cv, valid = _slot_points(
+        col, u1, v1, i_map, f, occ, geo0, geo1, ay, au, av, cfg
+    )
+    if cfg.smoothing is not None or cfg.attr_smoothing is not None:
+        frame = f.expand(F, Gb, spb)
+        pid = col(G.G_PATCH).expand(F, Gb, spb)
+    if cfg.smoothing is not None:
+        pos = list(smooth_flat(*pos, valid, pid, frame, F, cfg.smoothing))
     if cfg.attr_smoothing is not None:
         cy, cu, cv = smooth_colors_flat(
             *pos, cy, cu, cv, valid, pid, frame, F, cfg.attr_smoothing
         )
-
     S = Gb * spb
-
-    def word(lo, hi):
-        # the reference's u16 casts keep the low 16 bits of each value
-        return _pack16(lo.reshape(F, S) & 0xFFFF, hi.reshape(F, S) & 0xFFFF)
-
-    return (word(pos[0], pos[1]), word(pos[2], cy), word(cu, cv),
-            valid.reshape(F, S))
+    return (*_words(*pos, cy, cu, cv, (F, S)), valid.reshape(F, S))
 
 
 def reconstruct_batch(fields, occ, geo0, geo1, ay, au, av, cfg: FrameConfig):
@@ -280,3 +305,84 @@ def reconstruct_batch(fields, occ, geo0, geo1, ay, au, av, cfg: FrameConfig):
 
     *words, valid = gather_words(fields, occ, geo0, geo1, ay, au, av, cfg)
     return shift_compact_full(words, valid)
+
+
+def compute_slots(fields_rows, u1, v1, i_map, occ, geo0, geo1, attr_y,
+                  attr_u, attr_v, cfg: FrameConfig):
+    """Per-slot points, colours and validity of one frame: the
+    counterpart of ``tpu_vpcc.ops.reconstruct.compute_slots``, on the
+    point math of :func:`gather_words`. ``fields_rows`` (n,
+    N_GROUP_FIELDS) int32 is each slot's group row (already gathered),
+    ``u1``, ``v1``, ``i_map`` (n,) int32, the planes single-frame (as
+    :func:`gather_words`'s without the frame axis). Returns ``(pos (3,
+    n), col_y, col_u, col_v, valid)``, int32 and bool."""
+    def col(idx):
+        return fields_rows[:, idx]
+
+    f = torch.zeros((), dtype=torch.int64, device=fields_rows.device)
+    pos, cy, cu, cv, valid = _slot_points(
+        col, u1, v1, i_map, f, occ[None], geo0[None], geo1[None],
+        attr_y[None], attr_u[None], attr_v[None], cfg,
+    )
+    return torch.stack(pos), cy, cu, cv, valid
+
+
+def _slot_indices(cfg: FrameConfig, s_start: int, s_len: int,
+                  device="cpu"):
+    """Decompose slot indices into (group, v1, u1, i), int32 (constant
+    divisors)."""
+    res = cfg.occupancy_resolution
+    spb = cfg.slots_per_block
+    s = s_start + torch.arange(s_len, dtype=torch.int32, device=device)
+    g = s // spb
+    r = s - g * spb
+    v1 = r // (res * 2)
+    r2 = r - v1 * (res * 2)
+    u1 = r2 // 2
+    i_map = r2 - u1 * 2
+    return g, v1, u1, i_map
+
+
+def reconstruct_slot_range(s_start: int, s_len: int, fields, occ, geo0,
+                           geo1, attr_y, attr_u, attr_v, cfg: FrameConfig):
+    """Reconstruct slots ``[s_start, s_start + s_len)`` of one frame: the
+    counterpart of ``tpu_vpcc.ops.reconstruct.reconstruct_slot_range``.
+    ``fields`` (G, N_GROUP_FIELDS) int32 must hold every group the range
+    touches; the planes are single-frame, on the fields' device. The
+    reference compacts with a cumsum and a scatter; here the full-order
+    compaction ``shift_compact_full`` does (K1F on a CUDA tensor).
+    Returns ``(positions (s_len, 3), colors16 (s_len, 3), count)``:
+    int32 tensors of 16-bit values with the range's points compacted to
+    the front in emission order (the tail is unspecified), and a 0-d
+    int32 count."""
+    from .shift_compact import shift_compact_full
+    from .tiled import _unpack_ops_points
+
+    spb = cfg.slots_per_block
+    if s_start < 0 or s_start + s_len > fields.shape[0] * spb:
+        raise ValueError(f"slots [{s_start}, {s_start + s_len}) outside the "
+                         f"table's {fields.shape[0] * spb}")
+    _check_gather(fields[None], occ[None], geo0[None], geo1[None],
+                  attr_y[None], attr_u[None], attr_v[None], cfg)
+    g, v1, u1, i_map = _slot_indices(cfg, s_start, s_len, fields.device)
+    pos, cy, cu, cv, valid = compute_slots(
+        fields[g.to(torch.int64)], u1, v1, i_map, occ, geo0, geo1, attr_y,
+        attr_u, attr_v, cfg,
+    )
+    ops, count = shift_compact_full(
+        _words(pos[0], pos[1], pos[2], cy, cu, cv, (1, s_len)),
+        valid.reshape(1, s_len),
+    )
+    positions, colors16 = _unpack_ops_points(ops, "gather")
+    return positions[0], colors16[0], count[0]
+
+
+def reconstruct_frame(fields, occ, geo0, geo1, attr_y, attr_u, attr_v,
+                      cfg: FrameConfig):
+    """Every slot of one frame: :func:`reconstruct_slot_range` from 0 over
+    the table's ``G * 2 res²`` slots (``cfg.s_cap`` for a full table, as
+    in the reference; the table may be bucketed)."""
+    return reconstruct_slot_range(
+        0, fields.shape[0] * cfg.slots_per_block, fields, occ, geo0, geo1,
+        attr_y, attr_u, attr_v, cfg,
+    )

@@ -8,11 +8,16 @@ scatters in the JAX package, not Pallas kernels, so here they stay plain
 PyTorch on the tensors' device:
 ``index_add_`` and ``scatter_reduce_`` (``amin``/``amax``) over
 ``F * grid_width³`` flat cells, each frame's grid folded into the cell
-axis. :func:`_smooth_core` and :func:`_smooth_color_core` transcribe the
-reference's integer specification line for line, in int32 (``//``
-floors, as in numpy and JAX); cell indices are int64. Integer scatters
-add exactly in any order, so the result does not depend on the
-device's atomics.
+axis. Each pass is split where the reference's ``scatter`` ends: the
+cell statistics (:func:`geometry_stats`, :func:`color_stats`: six
+grids) and the apply step (:func:`geometry_apply`, :func:`color_apply`:
+neighbourhood, centroids, move), which transcribe the reference's
+``_smooth_core`` and ``_smooth_color_core`` line for line, in int32
+(``//`` floors, as in numpy and JAX); cell indices are int64. Integer
+scatters add exactly in any order, so the result does not depend on the
+device's atomics, and the grids of a frame's slot shards combine
+exactly (:func:`combine_stats`, the mesh's counterpart of the
+reference's ``psum``/``pmin``/``pmax`` over 'space').
 
 The two configurations are copied from ``tpu_vpcc.ops.smoothing``; its
 numpy oracle is copied into :mod:`.smoothing_np`.
@@ -131,22 +136,41 @@ def _round_div(num, den):
     return (num + den // 2) // den
 
 
-def _smooth_core(xs, ys, zs, valid, pid, frame, n_frames: int,
-                 cfg: SmoothingConfig):
-    """``tpu_vpcc.ops.smoothing._smooth_core`` on flat int32 tensors;
-    ``frame`` (int64) maps each slot to its frame's grid."""
+def _stats(xs, ys, zs, a, b, c, valid, pid, frame, n_frames: int, cfg):
+    """The six cell grids of ``cfg``'s grid over the valid slots (cells
+    from ``xs, ys, zs``, sums of the payload ``a, b, c``)."""
     gs, gw = cfg.grid_size, cfg.grid_width
-    v = valid.to(torch.int32)
-    base, cid = _cells(xs, ys, zs, frame, n_frames, gs, gw)
-    counts, sum_x, sum_y, sum_z, min_p, max_p = _scatter(
-        cid, v, xs, ys, zs, pid, n_frames * gw * gw * gw
-    )
+    _, cid = _cells(xs, ys, zs, frame, n_frames, gs, gw)
+    return _scatter(cid, valid.to(torch.int32), a, b, c, pid,
+                    n_frames * gw * gw * gw)
+
+
+def geometry_stats(xs, ys, zs, valid, pid, frame, n_frames: int,
+                   cfg: SmoothingConfig):
+    """The cell statistics of geometry smoothing, the first half of the
+    reference's ``_smooth_core`` (up to its ``scatter``): ``(count, sum
+    x, sum y, sum z, min pid, max pid)``, each an int32 grid of
+    ``n_frames * grid_width³`` cells. Flat int32 ``xs, ys, zs, pid``,
+    bool ``valid``, int64 ``frame``. Grids of slot subsets of the same
+    frames combine exactly (:func:`combine_stats`)."""
+    return _stats(xs, ys, zs, xs, ys, zs, valid, pid, frame, n_frames, cfg)
+
+
+def geometry_apply(stats, xs, ys, zs, valid, pid, frame,
+                   cfg: SmoothingConfig):
+    """The second half of ``tpu_vpcc.ops.smoothing._smooth_core``: each
+    slot's neighbourhood in the grids ``stats`` (:func:`geometry_stats`
+    of the whole frames), the centroids and the move. Returns the flat
+    int32 smoothed ``xs, ys, zs``."""
+    gs, gw = cfg.grid_size, cfg.grid_width
+    counts, sum_x, sum_y, sum_z, min_p, max_p = stats
     # per-cell rounded centroid (count-0 cells unused)
     cnt_safe = counts.clamp(min=1)
     cen_x = _round_div(sum_x, cnt_safe)
     cen_y = _round_div(sum_y, cnt_safe)
     cen_z = _round_div(sum_z, cnt_safe)
 
+    base = frame * (gw * gw * gw)
     in_range, corners = _neighbourhood(xs, ys, zs, base, gs, gw)
     V_x = torch.zeros_like(xs)
     V_y = torch.zeros_like(xs)
@@ -167,7 +191,7 @@ def _smooth_core(xs, ys, zs, valid, pid, frame, n_frames: int,
     c_y = _round_div(V_y, W_safe)
     c_z = _round_div(V_z, W_safe)
     dist2 = (xs - c_x) ** 2 + (ys - c_y) ** 2 + (zs - c_z) ** 2
-    move = (v > 0) & in_range & other & (W > 0) & (dist2 >= cfg.threshold)
+    move = valid & in_range & other & (W > 0) & (dist2 >= cfg.threshold)
     return (
         torch.where(move, c_x, xs),
         torch.where(move, c_y, ys),
@@ -175,21 +199,27 @@ def _smooth_core(xs, ys, zs, valid, pid, frame, n_frames: int,
     )
 
 
-def _smooth_color_core(xs, ys, zs, cy, cu, cv, valid, pid, frame,
-                       n_frames: int, cfg: AttrSmoothingConfig):
-    """``tpu_vpcc.ops.smoothing._smooth_color_core`` on flat int32
-    tensors (geometry cells, colour payload)."""
+def color_stats(xs, ys, zs, cy, cu, cv, valid, pid, frame, n_frames: int,
+                cfg: AttrSmoothingConfig):
+    """The cell statistics of colour smoothing (geometry cells, colour
+    sums): the first half of the reference's ``_smooth_color_core``, as
+    :func:`geometry_stats` is of ``_smooth_core``."""
+    return _stats(xs, ys, zs, cy, cu, cv, valid, pid, frame, n_frames, cfg)
+
+
+def color_apply(stats, xs, ys, zs, cy, cu, cv, valid, pid, frame,
+                cfg: AttrSmoothingConfig):
+    """The second half of ``tpu_vpcc.ops.smoothing._smooth_color_core``
+    on the grids ``stats`` (:func:`color_stats`). Returns the flat int32
+    ``cy, cu, cv``."""
     gs, gw = cfg.grid_size, cfg.grid_width
-    v = valid.to(torch.int32)
-    base, cid = _cells(xs, ys, zs, frame, n_frames, gs, gw)
-    counts, sum_y, sum_u, sum_v, min_p, max_p = _scatter(
-        cid, v, cy, cu, cv, pid, n_frames * gw * gw * gw
-    )
+    counts, sum_y, sum_u, sum_v, min_p, max_p = stats
     cnt_safe = counts.clamp(min=1)
     cen_y = _round_div(sum_y, cnt_safe)
     cen_u = _round_div(sum_u, cnt_safe)
     cen_v = _round_div(sum_v, cnt_safe)
 
+    base = frame * (gw * gw * gw)
     in_range, corners = _neighbourhood(xs, ys, zs, base, gs, gw)
     V_y = torch.zeros_like(xs)
     V_u = torch.zeros_like(xs)
@@ -217,7 +247,7 @@ def _smooth_color_core(xs, ys, zs, cy, cu, cv, valid, pid, frame,
     spread = y_max - y_min
     dev = (cy - b_y).abs()
     move = (
-        (v > 0)
+        valid
         & in_range
         & other
         & (W > 0)
@@ -229,6 +259,32 @@ def _smooth_color_core(xs, ys, zs, cy, cu, cv, valid, pid, frame,
         torch.where(move, b_u, cu),
         torch.where(move, b_v, cv),
     )
+
+
+def combine_stats(stats_list, devices):
+    """The cell statistics of several slot subsets of the same frames
+    (one per shard) combined into those of the whole frames: the
+    counterpart of the reference's ``psum``/``pmin``/``pmax`` over the
+    mesh's 'space' axis. Counts and sums add, ``min_p`` takes the
+    minimum and ``max_p`` the maximum, on ``devices[0]``. Integer sums,
+    minima and maxima are exact in any order, so the result is the
+    unsharded statistics' bytes. Returns one copy per entry of
+    ``devices`` (shard order), made once per distinct device: shards on
+    one device share it."""
+    home = torch.device(devices[0])
+    acc = [t.to(home) for t in stats_list[0]]
+    for stats in stats_list[1:]:
+        part = [t.to(home) for t in stats]
+        acc = [a + p for a, p in zip(acc[:4], part[:4])] + [
+            torch.minimum(acc[4], part[4]),
+            torch.maximum(acc[5], part[5]),
+        ]
+    copies = {}
+    for d in devices:
+        d = torch.device(d)
+        if d not in copies:
+            copies[d] = acc if d == home else [t.to(d) for t in acc]
+    return [copies[torch.device(d)] for d in devices]
 
 
 def _flat_frames(xs):
@@ -246,23 +302,21 @@ def smooth_flat(xs, ys, zs, valid, pid, frame, n_frames: int,
     """Geometry smoothing over flat slot tensors: ``frame`` is each
     slot's frame index (one grid per frame, ``n_frames`` of them).
     ``xs, ys, zs, pid`` integer, ``valid`` bool; returns the flat int32
-    smoothed ``xs, ys, zs``."""
-    return _smooth_core(
-        _i32(xs), _i32(ys), _i32(zs), valid.reshape(-1), _i32(pid),
-        frame.reshape(-1).to(torch.int64), n_frames, cfg,
-    )
+    smoothed ``xs, ys, zs``. The reference's ``_smooth_core``:
+    :func:`geometry_apply` of :func:`geometry_stats`."""
+    args = (_i32(xs), _i32(ys), _i32(zs), valid.reshape(-1), _i32(pid),
+            frame.reshape(-1).to(torch.int64))
+    return geometry_apply(geometry_stats(*args, n_frames, cfg), *args, cfg)
 
 
 def smooth_colors_flat(xs, ys, zs, cy, cu, cv, valid, pid, frame,
                        n_frames: int, cfg: AttrSmoothingConfig):
     """Colour smoothing over flat slot tensors on the positions' grid,
     one grid per frame (see :func:`smooth_flat`); returns the flat int32
-    ``cy, cu, cv``."""
-    return _smooth_color_core(
-        _i32(xs), _i32(ys), _i32(zs), _i32(cy), _i32(cu), _i32(cv),
-        valid.reshape(-1), _i32(pid), frame.reshape(-1).to(torch.int64),
-        n_frames, cfg,
-    )
+    ``cy, cu, cv``: :func:`color_apply` of :func:`color_stats`."""
+    args = (_i32(xs), _i32(ys), _i32(zs), _i32(cy), _i32(cu), _i32(cv),
+            valid.reshape(-1), _i32(pid), frame.reshape(-1).to(torch.int64))
+    return color_apply(color_stats(*args, n_frames, cfg), *args, cfg)
 
 
 def smooth_batch(xs, ys, zs, valid, pid, cfg: SmoothingConfig):

@@ -228,10 +228,11 @@ def stage_cat_inputs(fields, occ_t, geo0_t, geo1_t, ay_t, au_t, av_t, cfg,
     return (fields, cat), cfg
 
 
-def to_device(fields, cat, device):
-    """Host staging arrays -> device tensors (cat as int32 bit patterns).
-    Every group's ``G_BLOCKID`` must name a cat row: the CUDA kernels
-    read rows by it unchecked."""
+def host_tensors(fields, cat):
+    """Host staging arrays -> CPU tensors sharing their memory where the
+    arrays are contiguous (cat as int32 bit patterns). Every group's
+    ``G_BLOCKID`` must name a cat row: the CUDA kernels read rows by it
+    unchecked."""
     fields = np.ascontiguousarray(fields, dtype=np.int32)
     cat = np.ascontiguousarray(cat, dtype=np.uint32).view(np.int32)
     blk = fields[..., G.G_BLOCKID]
@@ -240,10 +241,13 @@ def to_device(fields, cat, device):
             f"G_BLOCKID outside the cat's {cat.shape[1]} blocks "
             f"({blk.min()}..{blk.max()})"
         )
-    return (
-        torch.from_numpy(fields).to(device),
-        torch.from_numpy(cat).to(device),
-    )
+    return torch.from_numpy(fields), torch.from_numpy(cat)
+
+
+def to_device(fields, cat, device):
+    """Host staging arrays -> device tensors (:func:`host_tensors`)."""
+    fields, cat = host_tensors(fields, cat)
+    return fields.to(device), cat.to(device)
 
 
 def gather_inputs_to_device(fields, occ, geo0, geo1, ay, au, av, device):
@@ -454,30 +458,90 @@ def _pack16(a, b):
     return _wrap32(a.to(torch.int64) | (b.to(torch.int64) << 16))
 
 
-def smooth_words(fields, w0, w1, w2, valid, cfg):
+def smooth_words_shards(shards, cfg, combine=None):
     """Geometry smoothing, then colour smoothing on the smoothed
     positions (as ``tpu_vpcc.ops.tiled._grids_to_words`` orders them),
-    on the wide words: x, y, z, cy, cu, cv are unpacked, smoothed and
-    repacked. Lossless for every valid slot: its components are 16-bit
-    and its colours 10-bit. The cluster id of a slot is its group's
-    ``G_PATCH``."""
-    from .smoothing import smooth_batch, smooth_colors_batch
-
-    F, S = valid.shape
-    pid = fields[:, :, G.G_PATCH].repeat_interleave(
-        S // fields.shape[1], dim=1
+    on the wide words of one or more slot shards of the same frames.
+    ``shards``: a list of ``(fields, w0, w1, w2, valid)``, each shard's
+    (F, S_shard) words on its own device with its own (F, G_shard)
+    group rows. x, y, z, cy, cu, cv are unpacked, smoothed and
+    repacked: lossless for every valid slot (16-bit components, 10-bit
+    colours). The cluster id of a slot is its group's ``G_PATCH``.
+    Each pass takes every shard's cell statistics, then ``combine``
+    (``smoothing.combine_stats`` over the shards' devices, so every
+    shard smooths against whole-frame statistics; the identity for one
+    shard), then applies them shard by shard. Returns one ``(w0, w1,
+    w2)`` per shard."""
+    from .smoothing import (
+        color_apply,
+        color_stats,
+        geometry_apply,
+        geometry_stats,
     )
-    xs, ys, zs = _lo16(w0), _hi16(w0), _lo16(w1)
-    cy, cu, cv = _hi16(w1), _lo16(w2), _hi16(w2)
+
+    if combine is None:
+        if len(shards) != 1:
+            raise ValueError("several shards need a combine of their stats")
+        combine = lambda stats: stats  # noqa: E731
+    cols, args, shapes = [], [], []  # per shard
+    for fields, w0, w1, w2, valid in shards:
+        F, S = valid.shape
+        pid = fields[:, :, G.G_PATCH].repeat_interleave(
+            S // fields.shape[1], dim=1)
+        frame = torch.arange(F, dtype=torch.int64, device=valid.device)
+        cols.append([t.reshape(-1) for t in (
+            _lo16(w0), _hi16(w0), _lo16(w1), _hi16(w1), _lo16(w2), _hi16(w2)
+        )])  # x, y, z, cy, cu, cv
+        args.append((valid.reshape(-1), pid.reshape(-1),
+                     frame[:, None].expand(F, S).reshape(-1)))
+        shapes.append((F, S))
     if cfg.smoothing is not None:
-        xs, ys, zs = smooth_batch(xs, ys, zs, valid, pid, cfg.smoothing)
-        w0, w1 = _pack16(xs, ys), _pack16(zs, cy)
+        stats = combine([
+            geometry_stats(*c[:3], *a, F, cfg.smoothing)
+            for c, a, (F, _) in zip(cols, args, shapes)
+        ])
+        for c, a, st in zip(cols, args, stats):
+            c[:3] = geometry_apply(st, *c[:3], *a, cfg.smoothing)
     if cfg.attr_smoothing is not None:
-        cy, cu, cv = smooth_colors_batch(
-            xs, ys, zs, cy, cu, cv, valid, pid, cfg.attr_smoothing
+        stats = combine([
+            color_stats(*c, *a, F, cfg.attr_smoothing)
+            for c, a, (F, _) in zip(cols, args, shapes)
+        ])
+        for c, a, st in zip(cols, args, stats):
+            c[3:] = color_apply(st, *c, *a, cfg.attr_smoothing)
+    out = []
+    for c, shape in zip(cols, shapes):
+        x, y, z, cy, cu, cv = (t.reshape(shape) for t in c)
+        out.append((_pack16(x, y), _pack16(z, cy), _pack16(cu, cv)))
+    return out
+
+
+def smooth_words(fields, w0, w1, w2, valid, cfg):
+    """:func:`smooth_words_shards` on one shard: the unsharded wide
+    path's smoothing of ``(w0, w1, w2)``."""
+    return smooth_words_shards([(fields, w0, w1, w2, valid)], cfg)[0]
+
+
+def reconstruct_batch_pretiled_shards(shards, cfg, combine=None):
+    """The wide device dispatch on one or more group shards of the same
+    frames: K2W (gather and wide words) on every shard, the smoothing
+    passes (cell statistics of every shard, ``combine``, apply; see
+    :func:`smooth_words_shards`), then K1F on every shard. ``shards``: a
+    list of ``(fields, cat)`` on their devices, each shard's fields a
+    contiguous range of the group axis and its cat the whole frames'.
+    Returns one ``(ops, counts)`` per shard, as
+    :func:`reconstruct_batch_pretiled` returns for the whole."""
+    from .payload import wide_words
+    from .shift_compact import shift_compact_full
+
+    words = [wide_words(fields, cat, cfg) for fields, cat in shards]
+    if cfg.smoothing is not None or cfg.attr_smoothing is not None:
+        smoothed = smooth_words_shards(
+            [(fields, *w) for (fields, _), w in zip(shards, words)],
+            cfg, combine,
         )
-        w1, w2 = _pack16(zs, cy), _pack16(cu, cv)
-    return w0, w1, w2
+        words = [(*sw, w[3]) for sw, w in zip(smoothed, words)]
+    return [shift_compact_full(w[:3], w[3]) for w in words]
 
 
 def reconstruct_batch_pretiled(fields, cat, cfg):
@@ -487,13 +551,7 @@ def reconstruct_batch_pretiled(fields, cat, cfg):
     ``ops`` the compacted ``(w0, w1, w2)``, each (F, S) with the
     frame's prefix in emission order (unpack with
     ``_unpack_ops_points(ops, "wide")``); ``counts`` (F,) int32."""
-    from .payload import wide_words
-    from .shift_compact import shift_compact_full
-
-    w0, w1, w2, valid = wide_words(fields, cat, cfg)
-    if cfg.smoothing is not None or cfg.attr_smoothing is not None:
-        w0, w1, w2 = smooth_words(fields, w0, w1, w2, valid, cfg)
-    return shift_compact_full((w0, w1, w2), valid)
+    return reconstruct_batch_pretiled_shards([(fields, cat)], cfg)[0]
 
 
 def _m10_triplet(w):

@@ -1,6 +1,6 @@
 """Multi-stream batched decoding (BASELINE.json config 5).
 
-Counterpart of ``tpu_vpcc.parallel.batcher``, without its ``mesh``.
+Counterpart of ``tpu_vpcc.parallel.batcher``.
 Decodes several V3C bitstreams concurrently: the host stages (V3C parse +
 HEVC sub-stream decode) run in a thread pool, one worker per stream, and
 frames from all streams are reconstructed in shared device dispatches:
@@ -8,7 +8,10 @@ GOFs whose :class:`~tpu_vpcc_torch.runtime.pipeline.DeviceInputs` share a
 batch key (staged ``FrameConfig``, layout, colour mode, group extent) are
 concatenated along the frame axis and dispatched together, in chunks of
 ``pipeline.DEVICE_BATCH`` frames, through the same kernels as the
-single-stream ``Decoder``.
+single-stream ``Decoder``. With a ``mesh``, each shared batch is chunked
+at ``DEVICE_BATCH x data`` frames and its tiled chunks shard frames over
+the mesh's 'data' axis and groups over 'space'
+(``tpu_vpcc_torch.parallel.spatial``).
 """
 
 from __future__ import annotations
@@ -69,11 +72,13 @@ def _concat_inputs(dis: List[DeviceInputs]) -> DeviceInputs:
     )
 
 
-def _dispatch_chunked(di: DeviceInputs, device, stats=None):
+def _dispatch_chunked(di: DeviceInputs, device, stats=None, mesh=None):
     """Dispatch a (possibly merged) batch in ``pipeline.DEVICE_BATCH``
-    frame chunks, sliced without copies; returns the flat per-frame
-    result list."""
-    chunk = pipeline.DEVICE_BATCH
+    frame chunks (``DEVICE_BATCH x data`` on a ``mesh``), sliced without
+    copies; returns the flat per-frame result list."""
+    chunk = pipeline.DEVICE_BATCH * (
+        mesh.shape["data"] if mesh is not None else 1
+    )
     out = []
     for i in range(0, di.n_frames, chunk):
         sub = replace(
@@ -81,7 +86,7 @@ def _dispatch_chunked(di: DeviceInputs, device, stats=None):
             arrays=tuple(a[i : i + chunk] for a in di.arrays),
             n_frames=min(chunk, di.n_frames - i),
         )
-        out.extend(_dispatch_device(sub, device, stats=stats))
+        out.extend(_dispatch_device(sub, device, stats=stats, mesh=mesh))
     return out
 
 
@@ -92,14 +97,18 @@ def _decode_waves(
     max_host_workers: int = 8,
     coalesce_initial: bool = True,
     stats=None,
+    mesh=None,
 ) -> Iterator[Tuple[int, int, PointSet3]]:
     """The wave loop of :func:`decode_streams_batched` over any per-stream
     GOF source: ``prep(sources[i])`` returns stream i's next GOF, or None
     once it is done, and runs in the pool. ``stats`` (a ``GofStats``)
     collects the host-clock stage split (``recon_tables``,
     ``recon_stage``, ``recon_dispatch``, ``recon_fetch``,
-    ``recon_emit``)."""
+    ``recon_emit``) and the ``mesh_fallback_dispatches`` counter.
+    ``mesh`` wins over ``params.mesh``."""
     device = resolve_device(params.device) if params.use_device else None
+    mesh = mesh if mesh is not None else params.mesh
+    space = mesh.shape["space"] if mesh is not None else 1
     states = [_StreamState(index=i, source=s) for i, s in enumerate(sources)]
 
     def run(state: _StreamState):
@@ -136,7 +145,7 @@ def _decode_waves(
                     ]
                     gof = _gof_map_pair_view(gof, 0)
                 with _st(stats, "recon_tables"):
-                    cfg, tables, g_bucket = _gof_tables_and_bucket(gof)
+                    cfg, tables, g_bucket = _gof_tables_and_bucket(gof, space)
                 with _st(stats, "recon_stage"):
                     di = _gof_device_inputs(gof, gof.metas, (cfg, tables),
                                             g_bucket)
@@ -149,12 +158,14 @@ def _decode_waves(
                 by_key.setdefault(it[2].batch_key, []).append(it)
             for group in by_key.values():
                 merged = _concat_inputs([it[2] for it in group])
-                results = _dispatch_chunked(merged, device, stats=stats)
+                results = _dispatch_chunked(merged, device, stats=stats,
+                                            mesh=mesh)
                 offset = 0
                 for state, gof, di, prebuilt, g_b, layer_views in group:
                     sec_vals = (
                         _secondary_chunk_values(gof, gof.metas, prebuilt, g_b,
-                                                device, stats=stats)
+                                                device, stats=stats,
+                                                mesh=mesh)
                         if gof.sec_attrs else None
                     )
                     layer_results = None
@@ -164,7 +175,7 @@ def _decode_waves(
                             _dispatch_chunked(
                                 _gof_device_inputs(lv, lv.metas,
                                                    (lcfg, prebuilt[1]), g_b),
-                                device, stats=stats,
+                                device, stats=stats, mesh=mesh,
                             )
                             for lv in layer_views
                         ]
@@ -174,7 +185,7 @@ def _decode_waves(
                                     sec_vals,
                                     _secondary_chunk_values(
                                         lv, lv.metas, (lcfg, prebuilt[1]),
-                                        g_b, device, stats=stats,
+                                        g_b, device, stats=stats, mesh=mesh,
                                     ),
                                 )
                     for j, (pos, col) in enumerate(
@@ -204,6 +215,7 @@ def _decode_waves(
 def decode_streams_batched(
     paths: Sequence,
     max_host_workers: int = 8,
+    mesh=None,
     coalesce_initial: bool = True,
     params: Params = None,
 ) -> Iterator[Tuple[int, int, PointSet3]]:
@@ -219,7 +231,8 @@ def decode_streams_batched(
 
     ``params`` carries the same decode options as the single-stream
     ``Decoder`` (smoothing toggles, per-GOF video threads, oracle path,
-    ``device``) and applies to every stream.
+    ``device``, mesh) and applies to every stream; the explicit ``mesh``
+    argument wins over ``params.mesh`` when both are given.
     """
     params = params if params is not None else Params()
     sources = [
@@ -242,7 +255,7 @@ def decode_streams_batched(
         )
 
     yield from _decode_waves(sources, prep, params, max_host_workers,
-                             coalesce_initial)
+                             coalesce_initial, mesh=mesh)
 
 
 def decode_streams(paths: Sequence, **kw) -> List[List[PointSet3]]:
