@@ -12,7 +12,7 @@ failure:
      in ``wide_words.cu``, K3 in ``cursor_compact.cu``, the probes P1-P12
      of K4-K6 in ``probes.cu``; one nvcc each, started together) with
      nvcc's ``-Xptxas -v`` lines, and whether the host video bridge
-     (libavcodec) loads;
+     (libavcodec) loads (phase 6 does not use it);
   2. K1 against its plain PyTorch version on the card: densities 0, 0.3,
      0.7, 1 and all-D1-invalid, F = 1, 2 and 3, pack30 and split
      operands, at the flagship's extent and those that
@@ -62,9 +62,26 @@ failure:
      dispatch and the fetch, the host stage split, the Decoder's
      frames/s with one and two GOFs in flight and the phase's peak
      device memory;
-  6. a committed fixture stream through ``Decoder`` on the card, whose
-     PLY bytes must equal the port's oracle path. Not run, and said so,
-     only when phase 1 found that the host video bridge cannot load;
+  6. the streams of the committed video store
+     (``tpu_vpcc_torch/tools/video_store.py``, ``tests/data/video_store``):
+     the HEVC decode alone is served from the store's frames (this
+     machine has no libavcodec); V3C parse, atlas, group tables,
+     staging, the kernels, smoothing, the host tails and PLY run as
+     they do with the bridge. Each of the 18 entries (every fixture
+     family of ``tests/test_torch_e2e.py`` and the 1280^2 lossy
+     ``flagship_1280_q8``) through ``runtime.cli.main`` in this process
+     with ``--device cuda`` and its flags: exit 0, every file byte-equal
+     to the port's ``--oracle`` CLI on the CPU from the same store and
+     to the manifest's SHA-256, and the K1, K2W and K1F launch counters,
+     set to 0 before each run, equal to the manifest's. Then the verify
+     stream with ``-d`` and ``--keep-intermediate-files`` on the default
+     device, and one several-``-i`` run over ``verify``, ``atlas_hash``
+     and ``smoothing`` whose per-stream directories equal the
+     single-stream outputs. Last, ``flagship_1280_q8`` repeated to four
+     GOFs through ``Decoder(Params(stream, device="cuda"))`` with one
+     and two GOFs in flight, in turns: frames equal to the manifest,
+     frames/s by host clock and the ``DecodeStats`` stage split (parse,
+     the store lookup, tables, staging, dispatch, fetch, PointSet3);
   7. K3, the cursor compaction experiment's kernel, against its plain
      version: the two-frame flagship wide extent (448 chunks) and two odd
      chunk counts at densities 0, 0.3, 0.7 and 1, then the first
@@ -154,7 +171,19 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-STREAM = ROOT / "tests" / "data" / "verify_64x64_2f.bin"
+#: the video store's 1280^2 lossy stream, timed in phase 6
+STREAM_FLAGSHIP = "flagship_1280_q8"
+#: GOFs of the timed stream (its one GOF repeated)
+STREAM_GOFS = 4
+#: what each ``DecodeStats`` stage of a stream decode is
+STAGE_LABELS = {
+    "video_decode": "video_decode (store lookup)",
+    "recon_tables": "recon_tables (tables)",
+    "recon_stage": "recon_stage (staging)",
+    "recon_dispatch": "recon_dispatch (dispatch)",
+    "recon_fetch": "recon_fetch (fetch)",
+    "recon_emit": "recon_emit (PointSet3)",
+}
 K1_SOURCE = "tpu_vpcc_torch/csrc/shift_compact.cu"
 K1_REPLACES = "tpu_vpcc/ops/shift_compact.py:127"
 K1F_REPLACES = "tpu_vpcc/ops/shift_compact.py:528"
@@ -242,10 +271,11 @@ def phase_build():
     except (subprocess.CalledProcessError, OSError) as e:
         detail = getattr(e, "stderr", "") or str(e)
         reason = " | ".join(detail.strip().splitlines()[-3:])
-        print(f"video bridge: cannot load ({type(e).__name__}: {reason})")
-        return False
-    print("video bridge: loads")
-    return True
+        print(f"video bridge: cannot load ({type(e).__name__}: {reason}); "
+              f"phase 6 serves the HEVC decode from the video store")
+        return
+    print("video bridge: loads; phase 6 serves the HEVC decode from the "
+          "video store all the same")
 
 
 def _same_twice(run, check_fn, what):
@@ -1090,26 +1120,173 @@ def phase_gather(fcfg, frame_sets, narrow_out):
                 launches=launches["K1F"], max_abs_err=err), gofs, out
 
 
-def phase_stream():
-    from tpu_vpcc_torch.utils.ply import format_ply
+def _ply_outputs(out_dir, entry, where):
+    """The PLY files under ``out_dir``, by name: the names and SHA-256
+    digests of ``entry``'s manifest."""
+    import hashlib
+
+    files = {p.name: p.read_bytes() for p in sorted(Path(out_dir).glob("*.ply"))}
+    check(sorted(files) == [o["name"] for o in entry.outputs],
+          f"{entry.name} ({where}): files {sorted(files)}, manifest "
+          f"{[o['name'] for o in entry.outputs]}")
+    for o in entry.outputs:
+        check(hashlib.sha256(files[o["name"]]).hexdigest() == o["sha256"],
+              f"{entry.name} ({where}): {o['name']} differs from the "
+              f"manifest's digest")
+    return files
+
+
+def _launch_counts():
+    from tpu_vpcc_torch.ops import payload
     from tpu_vpcc_torch.ops import shift_compact as sc
+
+    return {"K1": sc.launches, "K2W": payload.launches,
+            "K1F": sc.full_launches}
+
+
+def _reset_launches():
+    from tpu_vpcc_torch.ops import payload
+    from tpu_vpcc_torch.ops import shift_compact as sc
+
+    sc.reset_launches()
+    payload.reset_launches()
+
+
+def phase_stream():
+    """Phase 6: every entry of the committed video store
+    (``tools/video_store.py``) through the port's CLI on the card, the
+    HEVC decode replaced by the store's lookup and nothing else; then
+    the 1280^2 lossy stream through ``Decoder``, timed."""
+    import logging
+    import tempfile
+
+    from tpu_vpcc_torch.runtime import cli
+    from tpu_vpcc_torch.tools.video_store import VideoStore, served
+
+    # the CLI's per-frame log lines stay off; its errors still print
+    logging.basicConfig(level=logging.WARNING)
+    t_phase = time.perf_counter()
+    store = VideoStore()
+    check(STREAM_FLAGSHIP in store.entries,
+          f"the video store has no entry {STREAM_FLAGSHIP}")
+    with served(store), tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, e in store.entries.items():
+            args = ["-i", str(e.stream), *e.flags]
+            # the main path, counted: the port's CLI on the card
+            _reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.main([*args, "-o", str(tmp / name / "cuda"),
+                           "--device", "cuda"])
+            dt = time.perf_counter() - t0
+            launches = _launch_counts()
+            check(rc == 0, f"{name}: the CLI on the card exited {rc}")
+            check(launches == e.launches,
+                  f"{name}: kernel launches {launches}, manifest "
+                  f"{e.launches}")
+            rc = cli.main([*args, "-o", str(tmp / name / "oracle"),
+                           "--oracle", "--device", "cpu"])
+            check(rc == 0, f"{name}: the oracle CLI exited {rc}")
+            dev = _ply_outputs(tmp / name / "cuda", e, "card")
+            ora = _ply_outputs(tmp / name / "oracle", e, "oracle")
+            for n in dev:
+                check(dev[n] == ora[n], f"{name}: {n} differs from the "
+                      f"oracle's")
+            print(f"stream {name} {' '.join(e.flags)}: "
+                  f"{len(dev)} frames, "
+                  f"{[o['points'] for o in e.outputs]} points, byte-equal "
+                  f"to the oracle and the manifest; launches {launches}; "
+                  f"CLI {dt:.2f} s")
+        # the reference's unread options, on the default device (cuda)
+        e = store.entries["verify"]
+        rc = cli.main(["-i", str(e.stream), "-o", str(tmp / "unread"),
+                       "-d", "/nonexistent", "--keep-intermediate-files"])
+        check(rc == 0, f"-d and --keep-intermediate-files: exit {rc}")
+        _ply_outputs(tmp / "unread", e, "-d, --keep-intermediate-files")
+        # several -i through the batcher
+        multi = [store.entries[n] for n in store.multi["entries"]]
+        _reset_launches()
+        rc = cli.main([*(a for m in multi for a in ("-i", str(m.stream))),
+                       "-o", str(tmp / "multi"), "--device", "cuda",
+                       *store.multi["flags"]])
+        launches = _launch_counts()
+        check(rc == 0, f"several -i: exit {rc}")
+        for m in multi:
+            _ply_outputs(tmp / "multi" / m.stream.stem, m, "several -i")
+        check(launches["K1"] > 0 and launches["K2W"] > 0
+              and launches["K1F"] > 0,
+              f"several -i: kernel launches {launches}")
+        print(f"several -i ({', '.join(m.name for m in multi)}, "
+              f"{' '.join(store.multi['flags'])}): each stream's files "
+              f"equal to its single-stream decode; launches {launches}")
+        flagship_stream(store)
+    print(f"phase 6: {len(store.entries)} store entries on the card, "
+          f"{store.hits} lookups; {time.perf_counter() - t_phase:.1f} s")
+
+
+def flagship_stream(store):
+    """``STREAM_FLAGSHIP`` through ``Decoder(Params(stream,
+    device="cuda"))``, one and two GOFs in flight, in turns: its stream
+    repeated to :data:`STREAM_GOFS` GOFs (each GOF starts at its VPS),
+    every frame equal to the GOF's first decode, whose PLY bytes match
+    the manifest; host clock, ``DecodeStats`` stage split per GOF."""
+    import hashlib
+
+    import numpy as np
+
     from tpu_vpcc_torch.runtime.pipeline import Decoder, Params
+    from tpu_vpcc_torch.tools.kernel_times import nvidia_smi_line
+    from tpu_vpcc_torch.utils.ply import format_ply
 
-    def decode(**kw):
-        dec = Decoder(Params(STREAM, **kw))
+    e = store.entries[STREAM_FLAGSHIP]
+    one = e.stream.read_bytes()
+    # the sample stream header once, then the GOF's units again
+    data = one + one[1:] * (STREAM_GOFS - 1)
+    n_frames = STREAM_GOFS * len(e.outputs)
+    runs = {1: [], 2: []}
+    splits = {1: [], 2: []}
+    first = None
+    for depth in (1, 2, 2, 1):
+        dec = Decoder(Params(data, device="cuda", pipeline_gofs=depth,
+                             **e.params))
+        t0 = time.perf_counter()
         dec.start()
-        return [format_ply(f) for f in dec]
-
-    before = sc.launches
-    dev = decode(device="cuda")
-    check(sc.launches > before, "the stream decode launched K1 no time")
-    ora = decode(use_device=False, device="cpu")
-    check(len(dev) == len(ora) and len(dev) > 0,
-          f"frame counts differ: {len(dev)} vs {len(ora)}")
-    for k, (a, b) in enumerate(zip(dev, ora)):
-        check(a == b, f"stream frame {k}: PLY differs from the oracle's")
-    print(f"stream phase: {len(dev)} frames of {STREAM.name} decoded on the "
-          f"card, PLY bytes equal to the oracle path")
+        frames = list(dec)
+        runs[depth].append(time.perf_counter() - t0)
+        splits[depth].append(dec.stats.stage_totals())
+        check(len(frames) == n_frames,
+              f"{STREAM_FLAGSHIP}: {len(frames)} frames, want {n_frames}")
+        if first is None:
+            first = frames[: len(e.outputs)]
+            for ps, o in zip(first, e.outputs):
+                check(hashlib.sha256(format_ply(ps)).hexdigest()
+                      == o["sha256"],
+                      f"{STREAM_FLAGSHIP}: Decoder frame {o['name']} "
+                      f"differs from the manifest's digest")
+        for k, ps in enumerate(frames):
+            ref = first[k % len(first)]
+            check(np.array_equal(ps.positions, ref.positions)
+                  and np.array_equal(ps.colors, ref.colors),
+                  f"{STREAM_FLAGSHIP}: frame {k} differs from its GOF's "
+                  f"first decode")
+    smi = nvidia_smi_line()
+    pts = sum(o["points"] for o in e.outputs)
+    print(f"{STREAM_FLAGSHIP} through Decoder(Params(stream, device="
+          f"'cuda')), HEVC replaced by the store lookup ({smi}): "
+          f"{STREAM_GOFS} GOFs of {len(e.outputs)} 1280^2 frames, "
+          f"{pts} points a GOF; " + "; ".join(
+              f"pipeline_gofs={d}: runs {[round(s, 4) for s in v]} s, "
+              f"{n_frames / statistics.median(v):.2f} frames/s"
+              for d, v in runs.items()))
+    for depth, totals in splits.items():
+        med = {k: statistics.median(t.get(k, 0.0) for t in totals)
+               for k in totals[0]}
+        print(f"{STREAM_FLAGSHIP} stage split, pipeline_gofs={depth} "
+              f"(host clock, ms per GOF, median of 2 runs; host_prepare "
+              f"holds video_decode, the store lookup, and reconstruct "
+              f"holds the recon_ stages): " + ", ".join(
+                  f"{STAGE_LABELS.get(k, k)} {v * 1e3 / STREAM_GOFS:.2f}"
+                  for k, v in sorted(med.items())))
 
 
 def _covered_err(got, ref, valid) -> int:
@@ -1780,7 +1957,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     try:
-        bridge = phase_build()
+        phase_build()
         fcfg, frame_sets, gofs, S_flag = flagship_inputs()
         phase_k1(S_flag)
         k1f_err = phase_k1f(S_flag)
@@ -1790,11 +1967,7 @@ def main() -> int:
                                                k1f_err, k2w_err)
         gather, gather_gofs, gather_out = phase_gather(fcfg, frame_sets,
                                                        narrow_out)
-        if bridge:
-            phase_stream()
-        else:
-            print("stream phase: not run: the host video bridge cannot load "
-                  "on this machine (phase 1)")
+        phase_stream()
         k3 = phase_cursor(gofs[0], S_flag)
         probe_kernels = phase_probes()
         t0 = time.perf_counter()

@@ -568,3 +568,18 @@ def test_measure_takes_a_failed_measurement_anew(monkeypatch, times, tries):
 ])
 def test_short_record_names(name, short):
     assert KT.short_name(name) == short
+
+
+@pytest.mark.parametrize("kernel,library,verdict", [
+    ([0.0459, 0.0457, 0.0460], [0.0457, 0.0458, 0.0456], "tie"),
+    ([0.0500, 0.0501, 0.0502], [0.0457, 0.0458, 0.0456], "library faster"),
+    ([0.0400, 0.0401, 0.0402], [0.0457, 0.0458, 0.0456], "kernel faster"),
+], ids=["tie", "library", "kernel"])
+def test_verdict_against_the_library_call(kernel, library, verdict):
+    """``--repeats``: a kernel and its library call differ only by more
+    than the larger of their two ranges."""
+    v = KT.verdict(kernel, library)
+    assert v["verdict"] == verdict
+    assert (v["kernel_ms"], v["library_ms"]) == (sorted(kernel)[1], 0.0457)
+    assert v["spread_ms"] == pytest.approx(
+        max(max(kernel) - min(kernel), max(library) - min(library)))

@@ -3,9 +3,10 @@
     python -m tpu_vpcc_torch.runtime.cli -i stream.bin -o out_dir/ [--device cuda|cpu]
     python -m tpu_vpcc_torch.runtime.cli -i a.bin -i b.bin -o out_dir/
 
-The flags are ``tpu_vpcc.runtime.cli``'s, plus ``--device``, minus the
-no-op ``-d`` and ``--keep-intermediate-files``. Several ``-i`` inputs
-decode through the multi-stream batcher into one directory per stream.
+The flags are ``tpu_vpcc.runtime.cli``'s, plus ``--device``; ``-d`` and
+``--keep-intermediate-files`` are accepted and not read, as there.
+Several ``-i`` inputs decode through the multi-stream batcher into one
+directory per stream.
 """
 
 from __future__ import annotations
@@ -108,6 +109,9 @@ def main(argv=None) -> int:
                         help="First frame number in the output naming")
     parser.add_argument("--num-threads", type=int, default=4,
                         help="Host video-decode worker threads")
+    parser.add_argument("--keep-intermediate-files", action="store_true")
+    parser.add_argument("-d", "--video-decoder-path", type=Path, default=None,
+                        help="Unused: decoding is in-process (native libavcodec)")
     parser.add_argument("--oracle", action="store_true",
                         help="Use the NumPy oracle path instead of the device")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -144,6 +148,7 @@ def main(argv=None) -> int:
         decoder = Decoder(
             Params(
                 args.compressed_stream_paths[0],
+                keep_intermediate_files=args.keep_intermediate_files,
                 use_device=not args.oracle,
                 num_threads=args.num_threads,
                 apply_geo_smoothing_type=args.apply_geo_smoothing,

@@ -87,24 +87,38 @@ log = logging.getLogger(__name__)
 
 @dataclass
 class Params:
-    """Decoder parameters: the reference's options that the port reads,
-    plus ``device``."""
+    """Decoder parameters: the reference's, in its order, plus
+    ``device``. Of the nine rec-profile toggles the port reads the two
+    smoothings and occupancy synthesis; the other toggles and the paths
+    are kept for API parity and not read, as in the reference."""
 
     compressed_stream_path: Path = None
+    video_decoder_path: Optional[Path] = None  # unused (native decode)
+    keep_intermediate_files: bool = False
+    patch_color_subsampling: bool = False
+    color_space_conversion_path: Optional[Path] = None
+    inverse_color_space_conversion_config: Optional[Path] = None
+    # reconstruction options: rec0, all false
+    pixel_deinterleaving_type: bool = False
+    point_local_reconstruction_type: bool = False
+    reconstruction_eom_type: bool = False
+    duplicated_point_removal_type: bool = False
+    reconstruct_raw_type: bool = False
     apply_geo_smoothing_type: bool = False
     apply_attr_smoothing_type: bool = False
+    attr_transfer_filter_type: bool = False
     apply_occupancy_synthesis_type: bool = False
     use_device: bool = True  # False: NumPy oracle path
     queue_depth: int = 1
     num_threads: int = 3  # host video-decode workers per GOF
-    #: GOFs reconstructing concurrently (1 = strictly serial)
-    pipeline_gofs: int = 2
-    #: torch device of the reconstruction ("cuda" or "cpu")
-    device: str = "cuda"
     #: a ``parallel.mesh.Mesh``: tiled dispatches shard over its devices
     #: (frames over 'data', groups over 'space'); the rest run on
     #: ``device``
     mesh: Optional[object] = None
+    #: GOFs reconstructing concurrently (1 = strictly serial)
+    pipeline_gofs: int = 2
+    #: torch device of the reconstruction ("cuda" or "cpu")
+    device: str = "cuda"
 
     def __post_init__(self):
         src = self.compressed_stream_path
@@ -213,6 +227,7 @@ class Decoder:
                     apply_occupancy_synthesis=(
                         self.params.apply_occupancy_synthesis_type
                     ),
+                    stats=gs,
                 )
             for vt, vbs in (
                 ("occ", context.get_video_bitstream(VideoType.OCCUPANCY)),
@@ -298,11 +313,13 @@ def prepare_gof(
     apply_geo_smoothing: bool = False,
     apply_attr_smoothing: bool = False,
     apply_occupancy_synthesis: bool = False,
+    stats=None,
 ) -> GofData:
     """Host stages 2-3: patch frames + video decode (parallel substreams).
 
     Enforces the same envelope the reference asserts in ``Decoder::decode``
-    (``src/decoder.rs:34-180``).
+    (``src/decoder.rs:34-180``). With ``stats``, the video decode is
+    timed as its stage ``video_decode``.
     """
     vps = context.get_vps()
     oi = vps.occupancy_information
@@ -489,7 +506,8 @@ def prepare_gof(
     vtile = res if tiled else 0
 
     n_jobs = 1 + len(geo_bs_list) + sum(len(s) for s in attr_bs_sets)
-    with ThreadPoolExecutor(max_workers=max(num_video_threads, n_jobs)) as pool:
+    with _st(stats, "video_decode"), \
+            ThreadPoolExecutor(max_workers=max(num_video_threads, n_jobs)) as pool:
         occ_f = pool.submit(decompress_video, occ_bs.data, occ_codec)
         geo_fs = [
             # pixel-interleaved geometry decodes RASTER: the host

@@ -7,10 +7,12 @@ The helpers (:func:`measure` and what it is built from) are what
 the probe kernels P1-P12 (``ops/probes.py``) at about 64 MiB per operand,
 after checking each against its plain version and the probe's ``want``:
 
-    python -m tpu_vpcc_torch.tools.kernel_times [--probes P10,P11]
+    python -m tpu_vpcc_torch.tools.kernel_times [--probes P10,P11] [--repeats 3]
 
-It needs a card; every line names the card and its power limit. The last
-line is one JSON object with the numbers, by probe.
+It needs a card; every line names the card and its power limit. With
+``--repeats N`` each probe is measured N times in turn and a line per
+probe compares its kernel with its library call (:func:`verdict`). The
+last line is one JSON object with the numbers, by probe.
 """
 
 from __future__ import annotations
@@ -454,23 +456,60 @@ def time_probe(probe: str, device) -> dict:
     return m
 
 
+def verdict(kernel_ms, library_ms) -> dict:
+    """Repeated device-only times of a kernel and of its library call:
+    their medians, the spread (the larger of the two ranges) and which
+    is faster by more than the spread (else ``tie``)."""
+    k, lib = statistics.median(kernel_ms), statistics.median(library_ms)
+    spread = max(max(kernel_ms) - min(kernel_ms),
+                 max(library_ms) - min(library_ms))
+    if k - lib > spread:
+        who = "library faster"
+    elif lib - k > spread:
+        who = "kernel faster"
+    else:
+        who = "tie"
+    return {"kernel_ms": k, "library_ms": lib, "spread_ms": spread,
+            "verdict": who}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog=f"python -m {__name__}")
     ap.add_argument("--probes", default=",".join(probes.PROBES),
                     help="comma-separated probes (default: all twelve)")
+    ap.add_argument("--repeats", type=int, default=1,
+                    help="measurements of each probe, in turn")
     args = ap.parse_args(argv)
     names = [p.strip() for p in args.probes.split(",") if p.strip()]
     unknown = [p for p in names if p not in BIG]
     if unknown:
         ap.error(f"unknown probes {unknown}")
+    if args.repeats < 1:
+        ap.error("--repeats must be at least 1")
     device = resolve_device("cuda")
     smi = nvidia_smi_line()
     print(f"device: {torch.cuda.get_device_name(device)} ({smi})")
-    results = {}
-    for p in names:
-        results[p] = time_probe(p, device)
-        print(measured_line(f"{p} at 64 MiB per operand", results[p], smi))
-    print(json.dumps({"card": smi, "probes": results}))
+    results = {p: [] for p in names}
+    for r in range(args.repeats):
+        for p in names:
+            m = time_probe(p, device)
+            results[p].append(m)
+            print(measured_line(f"{p} at 64 MiB per operand, measurement "
+                                f"{r + 1} of {args.repeats}", m, smi))
+    out = {"card": smi, "probes": {p: ms[0] if len(ms) == 1 else ms
+                                   for p, ms in results.items()}}
+    if args.repeats > 1:
+        out["verdicts"] = {}
+        for p, ms in results.items():
+            if ms[0]["library_ms"] is None:
+                continue
+            v = verdict([m["ms"] for m in ms], [m["library_ms"] for m in ms])
+            out["verdicts"][p] = v
+            print(f"{p} against its library call ({smi}), {args.repeats} "
+                  f"measurements each: kernel {v['kernel_ms']:.4f} ms, "
+                  f"library {v['library_ms']:.4f} ms (medians), spread "
+                  f"{v['spread_ms']:.4f} ms: {v['verdict']}")
+    print(json.dumps(out))
     return 0
 
 

@@ -97,9 +97,6 @@ def _format_ply_binary(ps: PointSet3) -> bytes:
     return buf.getvalue()
 
 
-_ply_lib = None  # bound once; per-frame writes skip the ctypes setup
-
-
 def read_ply(data: bytes) -> PointSet3:
     """Parse both formats this module writes (testing / tooling aid).
 
@@ -161,7 +158,9 @@ def read_ply(data: bytes) -> PointSet3:
     return ps
 
 
-_ply_lib = None  # bound once; per-frame writes skip the ctypes setup
+#: bound once; per-frame writes skip the ctypes setup. False where the
+#: bridge cannot load, so that no frame tries to build it again
+_ply_lib = None
 
 
 def _format_body_native(ps: PointSet3):
@@ -169,12 +168,15 @@ def _format_body_native(ps: PointSet3):
     global _ply_lib
     import ctypes
 
+    if _ply_lib is False:
+        return None
     if _ply_lib is None:
         try:
             from ..video.codec import _load
 
             lib = _load()
             if not hasattr(lib, "ply_format_body"):
+                _ply_lib = False
                 return None
             lib.ply_format_body.restype = ctypes.c_int64
             lib.ply_format_body.argtypes = [
@@ -183,6 +185,7 @@ def _format_body_native(ps: PointSet3):
             ]
             _ply_lib = lib
         except Exception:
+            _ply_lib = False
             return None
     lib = _ply_lib
     n = ps.point_count
