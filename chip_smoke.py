@@ -96,10 +96,11 @@ failure:
      around them; then every probe's kernel against its plain version and
      the probe's numpy ``want`` at the probe's own shape (single-call
      times of both), P10 and P11 at ragged widths, single rows and row
-     counts off the row tile (``hopper_probe3.EDGE_SHAPES``), P4 and P8
-     at their edge shapes (``kernel_times.edge_cases``: step counts,
-     widths and offset orders; segment sizes and counts), each run twice
-     and required byte-equal, and every probe at about 64 MiB per
+     counts off the row tile (``hopper_probe3.EDGE_SHAPES``), P4, P5 and
+     P8 at their edge shapes (``kernel_times.edge_cases``: step counts,
+     widths and offset orders; byte counts around P5's vector, block
+     and wave of blocks, in both directions; segment sizes and counts), each
+     run twice and required byte-equal, and every probe at about 64 MiB per
      operand with its times (below). P4's and P8's kernels are held
      against their plain versions over the whole output, uncovered rows
      and segment tails included;
@@ -1408,7 +1409,7 @@ def _probe_check(cases_k, cases_p, where, twice=False):
 def phase_probes():
     """The three probe tools through their entry points, counted; every
     probe against its plain version and its ``want`` at the probe's shape,
-    P10 and P11, P4 and P8 at their edge shapes, and every probe at about
+    P10 and P11, P4, P5 and P8 at their edge shapes, and every probe at about
     64 MiB per operand with its device-only times. Returns the probes'
     kernels entries."""
     import torch
@@ -1456,7 +1457,7 @@ def phase_probes():
             cases_p = fn(dev, probes.plain, R=R, L=L)
             torch.cuda.synchronize()
             _probe_check(cases_k, cases_p, f"R={R} L={L}")
-    for where, fn in edge_cases():
+    for _, where, fn in edge_cases():
         cases_k = fn(dev, probes.call)
         cases_p = fn(dev, probes.plain)
         torch.cuda.synchronize()

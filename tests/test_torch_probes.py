@@ -20,6 +20,7 @@ versions by the ``cuda``-marked tests, on a card.
 """
 import importlib.util
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -260,10 +261,18 @@ def test_p8_segments_compact_independently():
     assert c.got.size > 3 * 2048
 
 
-#: P4's and P8's edge shapes, shared with the card's checks, by label
-_EDGES = dict(KT.edge_cases())
-_P8_EDGES = sorted(w for w in _EDGES if w.startswith("seg_"))
-_P4_EDGES = sorted(w for w in _EDGES if w.startswith("nstep"))
+#: P4's, P5's and P8's edge shapes, shared with the card's checks:
+#: (probe, fn) by label
+_EDGES = {where: (probe, fn) for probe, where, fn in KT.edge_cases()}
+
+
+def _edges_of(probe):
+    return sorted(w for w, (p, _) in _EDGES.items() if p == probe)
+
+
+_P8_EDGES = _edges_of("P8")
+_P4_EDGES = _edges_of("P4")
+_P5_EDGES = _edges_of("P5")
 
 
 def _halves(words):
@@ -336,7 +345,7 @@ def test_p4_plain_every_row(where):
         args = (torch.from_numpy(x), torch.tensor(offs, dtype=torch.int32),
                 out_rows)
     else:
-        args = _EDGES[where]("cpu", probes.plain)[0].args
+        args = _EDGES[where][1]("cpu", probes.plain)[0].args
     got = probes.plain("P4", *args).numpy()
     want, covered = _p4_rule(args[0].numpy(), args[1].numpy(), args[2])
     np.testing.assert_array_equal(got, want)
@@ -397,6 +406,74 @@ def test_tools_need_a_card_unless_told_cpu(monkeypatch):
             mod.main([])
 
 
+def test_edge_cases_name_their_probe():
+    """Every edge entry names the probe its cases run, and P5's sizes are
+    the seven of ``hopper_probe2.REINTERPRET_EDGES``."""
+    for where, (probe, fn) in _EDGES.items():
+        assert {c.probe for c in fn("cpu", probes.plain)} == {probe}, where
+    assert len(_P5_EDGES) == len(H2.REINTERPRET_EDGES) == 7
+
+
+@pytest.mark.parametrize("direction", ["split", "join"])
+@pytest.mark.parametrize("shape", H2.REINTERPRET_EDGES,
+                         ids=[f"nbytes={4 * r * n}"
+                              for r, n in H2.REINTERPRET_EDGES])
+def test_p5_plain_edge_shapes(shape, direction):
+    """P5's plain version at its edge sizes, in both directions, against
+    numpy's ``.view`` of the same bytes."""
+    R, L = shape
+    words = np.random.default_rng(L).integers(
+        0, 1 << 32, (R, L), dtype=np.uint64).astype(np.uint32).view(np.int32)
+    x = words if direction == "split" else words.view(np.int16)
+    dtype, want = ((torch.int16, x.view(np.int16)) if direction == "split"
+                   else (torch.int32, x.view(np.int32)))
+    got = probes.plain("P5", torch.from_numpy(x), dtype)
+    assert got.dtype == dtype and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_p5_edge_sizes_around_the_kernel():
+    """P5's edge sizes sit where the kernel changes course: below a
+    16-byte vector, around one block's 16 KB, and one wave of resident
+    blocks on every SM of an H100 plus three words."""
+    block = probes.REINTERPRET_BLOCK_THREADS * probes.REINTERPRET_VECTORS * 4
+    wave = H2.H100_SMS * H2.REINTERPRET_BLOCKS_PER_SM * block
+    assert block == 4096 and H2.REINTERPRET_BLOCKS_PER_SM == 8
+    assert [L for _, L in H2.REINTERPRET_EDGES] == [
+        1, 3, 5, block - 4, block, block + 1, wave + 3]
+
+
+def test_p5_constants_match_the_kernel():
+    """``ops/probes.py``'s P5 constants are the ones ``csrc/probes.cu``
+    is built with."""
+    src = (ROOT / "tpu_vpcc_torch" / "csrc" / "probes.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = ([0-9]+);",
+                             src).group(1))
+
+    assert const("kCopyVectors") == probes.REINTERPRET_VECTORS
+    assert const("kThreads") == probes.REINTERPRET_BLOCK_THREADS
+
+
+def test_p5_is_one_launch_of_its_own_kernel():
+    """P5's entry point launches ``vec_copy_kernel`` once, whatever the
+    size, and neither it nor the kernel moves bytes through a library
+    call."""
+    src = (ROOT / "tpu_vpcc_torch" / "csrc" / "probes.cu").read_text()
+
+    def body(start):
+        text = src[src.index(start):]
+        return text[:text.index("\n}\n")]
+
+    entry = body("int probe_reinterpret(")
+    kernel = body("vec_copy_kernel(const uint4*")
+    assert entry.count("<<<") == 1 and "vec_copy_kernel<<<" in entry
+    for text in (entry, kernel):
+        for call in ("cudaMemcpy", "cuMemcpy", "cub::", "thrust::"):
+            assert call not in text
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -423,20 +500,42 @@ def test_kernels_match_plain_on_card(tool):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("where", sorted(_EDGES))
+@pytest.mark.parametrize("where", sorted(_P4_EDGES + _P8_EDGES))
 def test_p4_p8_edge_shapes_on_card(where):
     """P4 and P8 at their edge shapes: the kernel's whole output equal to
     the plain version's, and to a second call's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (on the card: pytest -m cuda)")
-    fn = _EDGES[where]
-    probe = "P4" if where.startswith("nstep") else "P8"
+    probe, fn = _EDGES[where]
     before = probes.launches[probe]
     kernel = fn("cuda", probes.call)
     torch.cuda.synchronize()
     assert probes.launches[probe] == before + 1
     plain = fn("cuda", probes.plain)
     assert not KT.mismatches(kernel, plain, where, twice=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", _P5_EDGES)
+def test_p5_edge_shapes_on_card(where):
+    """P5 at its edge sizes, in both directions: one counted launch a
+    call, the whole output equal to the plain version's and to a second
+    call's, and one kernel record on the card a call (no memcpy or
+    memset)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (on the card: pytest -m cuda)")
+    probe, fn = _EDGES[where]
+    before = probes.launches["P5"]
+    kernel = fn("cuda", probes.call)
+    torch.cuda.synchronize()
+    assert probes.launches["P5"] == before + len(kernel) == before + 2
+    plain = fn("cuda", probes.plain)
+    assert not KT.mismatches(kernel, plain, where, twice=True)
+    for c in kernel:
+        split = KT.device_split_ms(lambda c=c: probes.call("P5", *c.args))
+        names = [KT.short_name(n) for n in split]
+        assert len(names) == 1 and "Memset" not in names[0] \
+            and "Memcpy" not in names[0], split
 
 
 @pytest.mark.cuda

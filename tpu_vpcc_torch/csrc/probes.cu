@@ -20,8 +20,8 @@
 //            the last step that covers it, or zeros, so blocks need no
 //            order and every output row is written once (probe_dyn_write).
 //   P5       u32 -> little-endian u16 pairs and back: on the card a
-//            reinterpretation, so the kernel is a 16-byte-vector copy
-//            (probe_reinterpret).
+//            reinterpretation, so the kernel is a copy, four 16-byte
+//            vectors a thread in one launch (probe_reinterpret).
 //   P8       each u16-stream slot moved down by its own shift and joined
 //            with its high half into a u32, in one pass through shared
 //            memory, one block per segment of up to 4,096 slots
@@ -70,6 +70,23 @@
 // destination; a slot whose destination would leave the segment is
 // skipped, colliding slots leave either value.
 //
+// P5 replaces tools/pallas_probe2.py::probe_bitcast (kernels kern and
+// kern2, pallas_calls at :60 and :78). The u32 words and their u16 pairs
+// are the same bytes here, so it must read every byte once and write it
+// once: 134,217,728 bytes at its 64 MiB shape, 0.040 ms at 3.35 TB/s.
+// Each thread starts four 16-byte streaming loads (__ldcs) before its
+// four streaming stores (__stcs), so 64 bytes a thread are in flight and
+// nothing stays in the caches the copy passes once; a block of 256
+// threads takes 16 KB, eight blocks fill an SM, and the grid covers the
+// array once, with no stride loop and no cap on blocks. The last block's
+// threads also copy the one to three words past the last vector: one
+// launch a call, whatever the size. It was chosen on the H100 over a
+// bulk-copy pipeline (TMA: persistent blocks, a ring of S chunks of C KB
+// in shared memory with one mbarrier a stage, one thread keeping the
+// bulk loads and stores in flight), which at its best (C = 16 KB, S = 3,
+// one block an SM) moved the 64 MiB shape at 84-85% of the bound against
+// this kernel's 86-87%, the rate view().clone() also reaches (PERF.md).
+//
 // P4 replaces tools/pallas_probe.py::probe_dyn_dma (kernel at :172,
 // pallas_call at :192), whose sequential grid applied each step's DMA in
 // turn. It must read the winning step's row for each covered output row
@@ -101,6 +118,7 @@ constexpr int kSlotsPerThread = kMaxSlots / kCompactThreads;
 constexpr int kOffsCap = 4096;       // P4 offsets staged in shared memory
 constexpr int kRowWarps = kThreads / 32;
 constexpr int kRowsInFlight = 4;     // rows a P4, P10 or P11 thread moves at once
+constexpr int kCopyVectors = 4;      // 16-byte vectors a P5 thread moves
 
 unsigned grid_for(int64_t n) {
   int64_t b = (n + kThreads - 1) / kThreads;
@@ -277,23 +295,34 @@ dyn_write_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ offs
   }
 }
 
+// P5: thread t of block b moves the 16-byte vectors
+// b * kThreads * kCopyVectors + t, + kThreads, ... (kCopyVectors of them):
+// all the streaming loads, then the streaming stores, so 64 bytes a
+// thread are in flight and nothing stays in the caches. The grid covers
+// the n_vec vectors once, with no stride loop; the last block's threads
+// also copy the bytes past them (at most three words).
 __global__ void __launch_bounds__(kThreads)
-copy16_kernel(const uint4* __restrict__ src, uint4* __restrict__ dst,
-              int64_t n_vec) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n_vec; i += stride) {
-    dst[i] = src[i];
+vec_copy_kernel(const uint4* __restrict__ src, uint4* __restrict__ dst,
+                int64_t n_vec, int64_t nbytes) {
+  const int64_t base =
+      static_cast<int64_t>(blockIdx.x) * kThreads * kCopyVectors + threadIdx.x;
+  uint4 v[kCopyVectors];
+#pragma unroll
+  for (int u = 0; u < kCopyVectors; ++u) {
+    const int64_t i = base + u * kThreads;
+    if (i < n_vec) v[u] = __ldcs(src + i);
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-copy4_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
-             int64_t n) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n; i += stride) {
-    dst[i] = src[i];
+#pragma unroll
+  for (int u = 0; u < kCopyVectors; ++u) {
+    const int64_t i = base + u * kThreads;
+    if (i < n_vec) __stcs(dst + i, v[u]);
+  }
+  if (blockIdx.x == gridDim.x - 1) {
+    const int64_t w = n_vec * 4 + threadIdx.x;
+    if (w < nbytes / 4) {
+      reinterpret_cast<uint32_t*>(dst)[w] =
+          reinterpret_cast<const uint32_t*>(src)[w];
+    }
   }
 }
 
@@ -590,23 +619,20 @@ int probe_dyn_write(const void* x, const void* offs, void* out, int nstep,
   return done();
 }
 
-// P5: copies nbytes (a multiple of 4) from src to dst, both 16-byte
-// aligned: u32 words become their little-endian u16 pairs, or back.
+// P5: copies nbytes (a multiple of 4, at least 4) from src to dst, both
+// 16-byte aligned, in one launch: u32 words become their little-endian
+// u16 pairs, or back.
 int probe_reinterpret(const void* src, void* dst, int64_t nbytes,
                       void* stream) {
   if (nbytes < 4 || nbytes % 4) return invalid();
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t n_vec = nbytes / 16;
-  if (n_vec) {
-    copy16_kernel<<<grid_for(n_vec), kThreads, 0, st>>>(
-        static_cast<const uint4*>(src), static_cast<uint4*>(dst), n_vec);
-  }
-  const int64_t tail = (nbytes - n_vec * 16) / 4;
-  if (tail) {
-    copy4_kernel<<<1, kThreads, 0, st>>>(
-        static_cast<const uint32_t*>(src) + n_vec * 4,
-        static_cast<uint32_t*>(dst) + n_vec * 4, tail);
-  }
+  const int64_t per_block = static_cast<int64_t>(kThreads) * kCopyVectors;
+  const int64_t grid = n_vec ? (n_vec + per_block - 1) / per_block : 1;
+  if (grid > 0x7fffffffLL) return invalid();
+  vec_copy_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(src), static_cast<uint4*>(dst), n_vec,
+      nbytes);
   return done();
 }
 

@@ -17,7 +17,9 @@ Counterparts of the Pallas kernels of ``tools/pallas_probe.py`` (P1-P4),
        offsets staged in shared memory and writes every row once, in
        16-byte vectors; the wrapper range-checks the offsets (one
        ``torch.aminmax``, one copy to the host)
-  P5   int32 -> its little-endian int16 pairs, and back
+  P5   int32 -> its little-endian int16 pairs, and back: on the card a
+       copy of every byte in one launch, each thread REINTERPRET_VECTORS
+       16-byte streaming loads and then their stores
   P6   P2 on u16 carried as int16
   P7   P1 with the shift read from a device tensor at run time
   P8   the shift compaction of ``tools/pallas_probe2.py`` on u16
@@ -51,6 +53,10 @@ PROBES = tuple(f"P{i}" for i in range(1, 13))
 #: P4's steps whose offsets a block of the kernel stages in shared memory
 #: (``kOffsCap`` in ``csrc/probes.cu``); it reads more from device memory
 DYN_WRITE_STAGED_STEPS = 4096
+#: P5's 16-byte vectors a thread moves (``kCopyVectors`` in
+#: ``csrc/probes.cu``), in blocks of REINTERPRET_BLOCK_THREADS threads
+REINTERPRET_VECTORS = 4
+REINTERPRET_BLOCK_THREADS = 256
 #: the probe libraries of the kernel table, by the probes each holds
 LIBRARIES = {
     "hopper_probe": ("P1", "P2", "P3", "P4"),

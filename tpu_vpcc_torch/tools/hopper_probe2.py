@@ -5,7 +5,8 @@ as arguments, defaulting to the probe's own), its report lines and its
 numpy ``want``s:
 
   P5  u32 -> u16 pairs in little-endian order, and the round trip: on the
-      card a reinterpretation (a 16-byte-vector copy). ``pltpu.bitcast``
+      card a reinterpretation (a copy of 16-byte vectors, four a
+      thread, in one launch). ``pltpu.bitcast``
       split rows instead of lanes and failed the probe's requested
       (R, 1024) shape; the Hopper kernel computes the probe's ``want``.
   P6  the flat shift-down on u16 (carried as int16), at 1,024 lanes
@@ -130,6 +131,25 @@ PROBE_FUNCTIONS = (probe_bitcast, probe_wide_u16, probe_dynamic_roll,
 #: more blocks than the card's 132 SMs)
 MINI_COMPACT_EDGES = tuple((w, n) for w in (1, 3, 4, 2047, 2048)
                            for n in (1, 3, 133))
+#: the streaming multiprocessors of an H100 SXM, which P5's largest edge
+#: shape fills with one wave of blocks (on another card, another shape)
+H100_SMS = 132
+#: P5's resident blocks on an SM: 2,048 threads in blocks of 256
+REINTERPRET_BLOCKS_PER_SM = 2048 // probes.REINTERPRET_BLOCK_THREADS
+#: the u32 words of one P5 block (256 threads of four 16-byte vectors:
+#: 16 KB, ``ops/probes.py``)
+_REINTERPRET_BLOCK_WORDS = (probes.REINTERPRET_BLOCK_THREADS
+                            * probes.REINTERPRET_VECTORS * 4)
+#: (R, L) int32 of P5's edge shapes, each one row: no 16-byte vector (4
+#: and 12 B), one vector and a word (20 B), one block less one vector,
+#: one block, one block and a word, and one wave of resident blocks on
+#: every SM and three words more; :func:`probe_bitcast` runs each in both
+#: directions
+REINTERPRET_EDGES = tuple(
+    (1, w) for w in (1, 3, 5, _REINTERPRET_BLOCK_WORDS - 4,
+                     _REINTERPRET_BLOCK_WORDS, _REINTERPRET_BLOCK_WORDS + 1,
+                     H100_SMS * REINTERPRET_BLOCKS_PER_SM
+                     * _REINTERPRET_BLOCK_WORDS + 3))
 
 
 def main(argv=None) -> int:

@@ -405,8 +405,9 @@ def whole_output_mismatches(case, where: str, twice: bool = False):
 
 def mismatches(cases_k, cases_p, where: str, twice: bool = False):
     """Kernel cases against the plain cases and both against ``want``,
-    and the :data:`WHOLE_OUTPUT` probes over their whole output
-    (:func:`whole_output_mismatches`): a line per disagreement."""
+    and the :data:`WHOLE_OUTPUT` probes (with ``twice``, every probe)
+    over their whole output (:func:`whole_output_mismatches`): a line per
+    disagreement."""
     bad = []
     for k, p in zip(cases_k, cases_p):
         if not (k.got.shape == p.got.shape and np.array_equal(k.got, p.got)):
@@ -415,25 +416,30 @@ def mismatches(cases_k, cases_p, where: str, twice: bool = False):
             if not (c.got.shape == c.want.shape
                     and np.array_equal(c.got, c.want)):
                 bad.append(f"{c.name} ({where}): {who} differs from want")
-        if k.probe in WHOLE_OUTPUT:
+        if twice or k.probe in WHOLE_OUTPUT:
             bad += whole_output_mismatches(k, where, twice)
     return bad
 
 
 def edge_cases():
-    """P4's and P8's edge shapes (``hopper_probe.DYN_WRITE_EDGES``,
-    ``hopper_probe2.MINI_COMPACT_EDGES``) as ``(label, fn)`` pairs, each
-    ``fn(device, run)`` giving the shape's cases like a probe function."""
+    """P4's, P5's and P8's edge shapes (``hopper_probe.DYN_WRITE_EDGES``,
+    ``hopper_probe2.REINTERPRET_EDGES``, ``hopper_probe2.MINI_COMPACT_EDGES``)
+    as ``(probe, label, fn)``, each ``fn(device, run)`` giving the shape's
+    cases like a probe function."""
     out = []
     rows = H1.DYN_WRITE_EDGE_ROWS
     for n, L, in_order in H1.DYN_WRITE_EDGES:
         offs = H1.dyn_write_offsets(n, rows, in_order, seed=n)
         label = f"nstep={n} L={L} {'in order' if in_order else 'shuffled'}"
-        out.append((label, lambda d, run, n=n, L=L, offs=offs:
+        out.append(("P4", label, lambda d, run, n=n, L=L, offs=offs:
                     H1.probe_dyn_dma(d, run, nstep=n, step_rows=rows, L=L,
                                      offs=offs)))
+    for R, L in H2.REINTERPRET_EDGES:
+        out.append(("P5", f"nbytes={4 * R * L}",
+                    lambda d, run, R=R, L=L:
+                    H2.probe_bitcast(d, run, R=R, L=L)))
     for w, n in H2.MINI_COMPACT_EDGES:
-        out.append((f"seg_words={w} n_seg={n}",
+        out.append(("P8", f"seg_words={w} n_seg={n}",
                     lambda d, run, w=w, n=n:
                     H2.probe_mini_compact(d, run, R=1, L=w, n_seg=n)))
     return out
