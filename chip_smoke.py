@@ -8,9 +8,10 @@ and the CUDA toolkit (nvcc). Phases, each of which exits non-zero on
 failure:
 
   1. device and build: the card's name and power limit, the builds of
-     the four kernel libraries (K1 and K1F in ``shift_compact.cu``, K2W
+     the five kernel libraries (K1 and K1F in ``shift_compact.cu``, K2W
      in ``wide_words.cu``, K3 in ``cursor_compact.cu``, the probes P1-P12
-     of K4-K6 in ``probes.cu``; one nvcc each, started together) with
+     of K4-K6 in ``probes.cu``, K5 in ``pack_planes.cu``; one nvcc each,
+     started together) with
      nvcc's ``-Xptxas -v`` lines, and whether the host video bridge
      (libavcodec) loads (phase 6 does not use it);
   2. K1 against its plain PyTorch version on the card: densities 0, 0.3,
@@ -24,14 +25,25 @@ failure:
   2b. K1F against its plain version: densities 0, 0.3, 0.7 and 1, F = 1,
      2 and 3, at the same edge extents in slots. Counts equal, prefixes
      byte-equal, two calls byte-equal;
+  2c. K5, the device pack, against its plain version: the first flagship
+     GOF's own block-tiled planes and swap mask, the CPU test's grid
+     (``ops.pack.CHECK_GRID``: one and two maps, chroma shift 0 and 1,
+     five block edges and occupancy precisions, F = 1 and 3, swap
+     densities 0, 0.3 and 1, on random samples over the full 10-bit
+     range), one block of one frame, and 324 words (no multiple of the
+     kernel's 256-thread block); each case twice, the whole cat
+     byte-equal; then K5's times (below) at the flagship GOF;
   3. the flagship main path on the card: two GOFs of two synthetic
      1280^2 frames each through ``Decoder.start_gofs`` with both GOFs in
-     flight (group tables, cat staging, gather + words + K1 on the card,
-     prefix fetch with yuv10 -> rgb8 on the card, PointSet3), each frame
-     byte-equal to the numpy oracle, with the K1 launch counter read
-     around that run; then K1's times (below), CUDA-event timings of the
-     other stages and the Decoder's throughput with one and two GOFs in
-     flight;
+     flight (group tables, staging of the block-tiled planes, K5 packing
+     the cat, gather + words + K1 on the card, prefix fetch with yuv10 ->
+     rgb8 on the card, PointSet3), each frame byte-equal to the numpy
+     oracle, with the K1 and K5 launch counters read around that run
+     (K5's equal to K1's); then K1's times (below), CUDA-event timings of
+     the other stages, the H2D of the planes against the host cat's, and,
+     with the device pack and the host pack (``staged_as``) in turns, the host staging, the stage split and the Decoder's
+     throughput with one and two GOFs in flight, every frame of the
+     host-pack runs byte-equal to the first run's;
   4. K2W against its plain version at the flagship dispatch shape, on
      the first flagship GOF's staged fields and cat: the plain wide
      layout, 45-degree views (random G_PLANE in 0..3), a trailing-layer
@@ -41,8 +53,9 @@ failure:
      flight: the first GOF's two 1280^2 frames with geometry and colour
      smoothing, and two frames (seeds 4-5) with a third of their patches
      on 45-degree views. Every frame byte-equal to the numpy oracle
-     (``_reconstruct_gof_oracle``), the K2W and K1F launch counters read
-     around the run, and the smoothed frames differ from phase 3's
+     (``_reconstruct_gof_oracle``), the K2W, K1F and K5 launch counters
+     read around the run (K5's equal to K2W's), and the smoothed frames
+     differ from phase 3's
      unsmoothed decode of the same frames in a position and a colour;
      then the times of K2W and K1F (below), CUDA-event timings of the
      smoothing, the wide dispatch, the fetch and the host staging, and
@@ -55,8 +68,8 @@ failure:
      byte-equal to the numpy oracle, GOF W's also to phase 3's 10-bit
      decode, the rotated patches' own points counted by a dispatch of
      their groups alone, smoothing's effect on GOF RS, K1F's launch
-     counter advanced by exactly the gather dispatches and K1's and
-     K2W's not at all; the colour conversion on 16-bit samples equal on
+     counter advanced by exactly the gather dispatches and K1's, K2W's
+     and K5's not at all; the colour conversion on 16-bit samples equal on
      the card and the CPU; then K1F's times at GOF R's dispatch shape
      (below), CUDA-event timings of the slot math of each GOF, the
      dispatch and the fetch, the host stage split, the Decoder's
@@ -73,13 +86,16 @@ failure:
      with ``--device cuda`` and its flags: exit 0, every file byte-equal
      to the port's ``--oracle`` CLI on the CPU from the same store and
      to the manifest's SHA-256, and the K1, K2W and K1F launch counters,
-     set to 0 before each run, equal to the manifest's. Then the verify
+     set to 0 before each run, equal to the manifest's, K5's to the
+     manifest's K1 and K2W (0 for an entry with quantized patch extents,
+     which the host packs). Then the verify
      stream with ``-d`` and ``--keep-intermediate-files`` on the default
      device, and one several-``-i`` run over ``verify``, ``atlas_hash``
      and ``smoothing`` whose per-stream directories equal the
      single-stream outputs. Last, ``flagship_1280_q8`` repeated to four
      GOFs through ``Decoder(Params(stream, device="cuda"))`` with one
-     and two GOFs in flight, in turns: frames equal to the manifest,
+     and two GOFs in flight, with the device pack and the host pack, in
+     turns: frames equal to the manifest,
      frames/s by host clock and the ``DecodeStats`` stage split (parse,
      the store lookup, tables, staging, dispatch, fetch, PointSet3);
   7. K3, the cursor compaction experiment's kernel, against its plain
@@ -111,7 +127,8 @@ failure:
      its decode in phase 3, 5 or 5b; a spy on the dispatches shows the
      first wave's 12 narrow frames merged into one input and dispatched
      as 6 chunks of ``DEVICE_BATCH``, and the K1, K2W and K1F launch
-     counters advance by exactly the narrow, wide and gather chunks. Then
+     counters advance by exactly the narrow, wide and gather chunks, K5's
+     by the narrow and wide ones. Then
      the aggregate frames/s beside ``Decoder.start_gofs`` over the same
      16 GOFs (two in flight), the batcher's stage split, its peak device
      memory, and the 12-frame narrow merged input dispatched at chunks
@@ -127,7 +144,8 @@ failure:
      times, and, on a machine with four cards, (1, 4), (2, 2) and (4, 1)
      over four distinct cards. Every frame byte-equal to its meshless
      decode; the K1, K2W and K1F launch counters, set to 0 before each
-     decode, read shards x chunks on the tiled GOFs, and GOF R takes the
+     decode, read shards x chunks on the tiled GOFs, K5's distinct
+     devices of each data row x chunks, and GOF R takes the
      reference's counted fallback (``mesh_fallback_dispatches``, one
      K1F launch per chunk); smoothing moved the same points as in phase
      5. ``reconstruct_gof_spatial`` and ``reconstruct_batch_data_parallel``
@@ -169,6 +187,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -188,6 +207,9 @@ STAGE_LABELS = {
 K1_SOURCE = "tpu_vpcc_torch/csrc/shift_compact.cu"
 K1_REPLACES = "tpu_vpcc/ops/shift_compact.py:127"
 K1F_REPLACES = "tpu_vpcc/ops/shift_compact.py:528"
+K5_SOURCE = "tpu_vpcc_torch/csrc/pack_planes.cu"
+#: the XLA pack of the reference's default off the TPU (no Pallas kernel)
+K5_REPLACES = "tpu_vpcc/ops/tiled.py:1006"
 K2W_SOURCE = "tpu_vpcc_torch/csrc/wide_words.cu"
 K2W_REPLACES = "tpu_vpcc/ops/pallas_kernels.py:38"
 K3_SOURCE = "tpu_vpcc_torch/csrc/cursor_compact.cu"
@@ -217,7 +239,10 @@ PROBE_ENTRIES = {
     "P10": "probe_tile_concat", "P11": "probe_reverse_lanes",
     "P12": "probe_interleave",
 }
-KERNEL_LIBS = ("shift_compact", "wide_words", "cursor_compact", "probes")
+KERNEL_LIBS = ("shift_compact", "wide_words", "cursor_compact", "probes",
+               "pack_planes")
+#: the two stagings of the tiled paths (see :func:`staged_as`)
+STAGINGS = ("device pack", "host pack")
 
 
 class SmokeFailure(Exception):
@@ -227,6 +252,50 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+@contextmanager
+def staged_as(name: str, dispatches: bool = True):
+    """The tiled paths' staging while open: the "device pack", the port's
+    own, or the "host pack", for which every dispatch that ``pipeline``
+    and ``batcher`` stage for the device pack is staged again as the
+    port stages quantized extents (``ops.tiled.stage_cat_inputs``: the
+    cat packed on the host from the same planes). When the block
+    ``dispatches``, K5 must have launched under the device pack and not
+    once under the host pack."""
+    from dataclasses import replace
+
+    from tpu_vpcc_torch.ops import pack
+    from tpu_vpcc_torch.ops.tiled import stage_cat_inputs
+    from tpu_vpcc_torch.parallel import batcher
+    from tpu_vpcc_torch.runtime import pipeline as P
+
+    check(name in STAGINGS, f"no staging {name!r}")
+    real = P._gof_device_inputs
+    restaged = []
+
+    def host_pack(*args, **kw):
+        di = real(*args, **kw)
+        if di.staging != "device_pack":
+            return di
+        fields, *planes, _swap = di.arrays
+        arrays, cfg = stage_cat_inputs(fields, *planes, di.cfg)
+        restaged.append(di.n_frames)
+        return replace(di, cfg=cfg, staging="host_pack", arrays=arrays)
+
+    before = pack.launches
+    if name == "host pack":
+        P._gof_device_inputs = batcher._gof_device_inputs = host_pack
+    try:
+        yield
+    finally:
+        P._gof_device_inputs = batcher._gof_device_inputs = real
+    launched = pack.launches - before
+    if name == "host pack":
+        check(restaged, "host pack: no dispatch was staged by it")
+    if dispatches:
+        check((launched == 0) == (name == "host pack"),
+              f"{name}: K5 launched {launched} times")
 
 
 def prefix_err(outs_a, outs_b, counts) -> int:
@@ -245,7 +314,7 @@ def phase_build():
 
     from tpu_vpcc_torch.ops import _build
     from tpu_vpcc_torch.ops import cursor_compact as k3
-    from tpu_vpcc_torch.ops import payload, probes
+    from tpu_vpcc_torch.ops import pack, payload, probes
     from tpu_vpcc_torch.ops import shift_compact as sc
     from tpu_vpcc_torch.tools.kernel_times import nvidia_smi_line
 
@@ -257,7 +326,7 @@ def phase_build():
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(KERNEL_LIBS)) as pool:
         list(pool.map(_build.build, KERNEL_LIBS))
-    for mod in (sc, payload, k3, probes):
+    for mod in (sc, payload, k3, probes, pack):
         mod._load()
     print(f"kernel builds ({', '.join(KERNEL_LIBS)}, in parallel): "
           f"{time.perf_counter() - t0:.2f} s")
@@ -386,6 +455,114 @@ def phase_k1f(S_flag: int) -> int:
     return err
 
 
+def _k5_case(planes, cfg, what) -> int:
+    """K5 twice on one input: each whole cat byte-equal to the plain
+    version's. Returns the max abs error (0)."""
+    import torch
+
+    from tpu_vpcc_torch.ops import pack
+
+    got = pack.pack_cat(*planes, cfg)
+    again = pack.pack_cat(*planes, cfg)
+    want = pack.pack_cat_plain(*planes, cfg)
+    torch.cuda.synchronize()
+    err = words_err((got,), (want,))
+    check(torch.equal(got, want), f"K5 differs from plain ({what}, max abs "
+                                  f"err {err})")
+    check(torch.equal(again, got), f"K5: two calls on one input differ "
+                                   f"({what})")
+    return err
+
+
+def _k5_planes(mc, cs, res, prec, F, density, nb, gen):
+    """Random planes on the card as ``ops.tiled.planes_to_device`` gives
+    them: occupancy over 0-255, samples over the full 10-bit range, a
+    swap mask of ``density``."""
+    import torch
+
+    dev = torch.device("cuda")
+    rp, rc = res // prec, res >> cs
+
+    def u10(*shape):
+        return torch.randint(0, 1024, shape, dtype=torch.int16, device=dev,
+                             generator=gen)
+
+    occ = torch.randint(0, 256, (F, nb, rp, rp), dtype=torch.uint8,
+                        device=dev, generator=gen)
+    swap = (torch.rand((F, nb), device=dev, generator=gen)
+            < density).to(torch.uint8)
+    return (occ, u10(F, nb, res, res), u10(F, nb, res, res),
+            u10(F, mc, nb, res, res), u10(F, mc, nb, rc, rc),
+            u10(F, mc, nb, rc, rc), swap)
+
+
+def phase_k5(gof):
+    """Phase 2c: K5 against its plain version on the card (see the module
+    note), then its times at the first flagship GOF's planes. Returns
+    K5's kernels entry without its launches (phase 3 counts them)."""
+    import torch
+
+    from tpu_vpcc_torch.ops import pack
+    from tpu_vpcc_torch.ops.reconstruct import make_config
+    from tpu_vpcc_torch.ops.tiled import planes_to_device
+    from tpu_vpcc_torch.runtime import pipeline as P
+    from tpu_vpcc_torch.tools.kernel_times import (
+        PACK_NO_LIBRARY,
+        measured_line,
+        nvidia_smi_line,
+        pack_bytes,
+        time_pack,
+    )
+
+    t0 = time.perf_counter()
+    cfg, tables, g_bucket = P._gof_tables_and_bucket(gof)
+    di = P._gof_device_inputs(gof, gof.metas, (cfg, tables), g_bucket)
+    check(di.staging == "device_pack",
+          f"the flagship GOF is staged as {di.staging!r}")
+    _, *planes = planes_to_device(*di.arrays, torch.device("cuda"))
+    err = _k5_case(planes, di.cfg, "flagship GOF")
+    F, nb = planes[0].shape[:2]
+    print(f"K5 vs plain, the first flagship GOF's planes: F={F} nb={nb} "
+          f"res={di.cfg.occupancy_resolution}, {int(planes[-1].sum())} "
+          f"blocks transposed: whole cats equal, two calls byte-equal")
+    gen = torch.Generator(device="cuda").manual_seed(55)
+    cases = {f"grid {g}": g + (5,) for g in pack.CHECK_GRID}
+    cases["one block of one frame"] = (2, 1, 16, 4, 1, 1.0, 1)
+    cases["324 words, no multiple of the 256-thread block"] = (
+        1, 1, 6, 3, 1, 0.5, 3)
+    for what, (mc, cs, res, prec, F_, density, nb_) in cases.items():
+        c = make_config(width=res * nb_, height=res, occupancy_resolution=res,
+                        occupancy_precision=prec, map_count=mc,
+                        chroma_shift=cs)
+        err = max(err, _k5_case(
+            _k5_planes(mc, cs, res, prec, F_, density, nb_, gen), c, what))
+    print(f"K5 vs plain, the CPU test's grid ({len(pack.CHECK_GRID)} cases: "
+          f"maps 1-2, chroma shift 0-1, (res, prec) in (16, 4), (16, 1), "
+          f"(8, 2), (16, 16), (32, 4), F 1 and 3, swap densities 0, 0.3, "
+          f"1; 5 blocks a frame), one block of one frame, 324 words: whole "
+          f"cats equal, two calls byte-equal")
+    print(f"phase 2c: {len(cases) + 1} K5 cases byte-equal to the plain "
+          f"version, each twice ({time.perf_counter() - t0:.1f} s)")
+    occ, geo0, _, ay, au, av, swap = planes
+    split = {"occupancy": occ, "geometry": geo0, "luma": ay[:, 0],
+             "chroma": au[:, 0], "swap mask": swap}
+    maps = 2 if di.cfg.map_count > 1 else 1
+    reads = {k: t.numel() * t.element_size()
+             * (1 if k in ("occupancy", "swap mask") else
+                2 * maps if k == "chroma" else maps)
+             for k, t in split.items()}
+    nbytes = pack_bytes(*planes, di.cfg)
+    k5 = time_pack(planes, di.cfg)
+    print(measured_line("K5 at the first flagship GOF's planes", k5,
+                        nvidia_smi_line()))
+    print(f"  K5 library call: {PACK_NO_LIBRARY}")
+    print("K5 bytes: reads " + ", ".join(f"{k} {v:,}" for k, v in
+                                         reads.items())
+          + f"; writes {nbytes - sum(reads.values()):,}; total {nbytes:,}")
+    return dict(k5, name="pack_planes", route="cuda", source=K5_SOURCE,
+                replaces=K5_REPLACES, max_abs_err=err)
+
+
 def oracle_frame(sf, frames):
     from tpu_vpcc_torch.reconstruction.oracle import (
         GeneratePointCloudParams,
@@ -470,14 +647,24 @@ def decode_gofs(gofs, depth: int):
     return list(dec)
 
 
+def _same_frame_lists(got, want) -> bool:
+    import numpy as np
+
+    return len(got) == len(want) and all(
+        np.array_equal(a.positions, b.positions)
+        and np.array_equal(a.colors, b.colors) for a, b in zip(got, want))
+
+
 def phase_flagship(frame_sets, gofs):
     import numpy as np
     import torch
 
+    from tpu_vpcc_torch.ops import pack
     from tpu_vpcc_torch.ops import shift_compact as sc
     from tpu_vpcc_torch.ops.tiled import (
         _gather_tiles,
         _tiles_to_words,
+        planes_to_device,
         reconstruct_batch_pretiled_packed,
         to_device,
     )
@@ -495,16 +682,20 @@ def phase_flagship(frame_sets, gofs):
     # staging, dispatch, fetch, PointSet3 on two reconstruction threads)
     torch.cuda.synchronize()
     sc.reset_launches()
+    pack.reset_launches()
     t0 = time.perf_counter()
     out = decode_gofs(gofs, depth=2)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = sc.launches
+    launches, k5_launches = sc.launches, pack.launches
     check(launches >= len(gofs),
           f"the main path launched K1 {launches} times for {len(gofs)} GOFs")
+    check(k5_launches == launches,
+          f"the main path launched K5 {k5_launches} times for {launches} "
+          f"device-packed K1 dispatches")
     print(f"main path: Decoder.start_gofs, pipeline_gofs=2, {len(gofs)} GOFs, "
           f"{len(out)} frames in {first_s:.3f} s (first run), "
-          f"K1 launches {launches}")
+          f"K1 launches {launches}, K5 launches {k5_launches}")
 
     all_frames = [sf for frames in frame_sets for sf in frames]
     check(len(out) == len(all_frames),
@@ -530,10 +721,17 @@ def phase_flagship(frame_sets, gofs):
     # timings at this shape (not counted: the main-path run is over)
     frames, gof = frame_sets[0], gofs[0]
     cfg, tables, g_bucket = P._gof_tables_and_bucket(gof)
-    t0 = time.perf_counter()
-    di = P._gof_device_inputs(gof, gof.metas, (cfg, tables), g_bucket)
-    stage_s = time.perf_counter() - t0
-    fields, cat = to_device(*di.arrays, dev)
+    staged, stage_s = {}, {}
+    for name in STAGINGS:
+        with staged_as(name, dispatches=False):
+            t0 = time.perf_counter()
+            staged[name] = P._gof_device_inputs(gof, gof.metas,
+                                                (cfg, tables), g_bucket)
+            stage_s[name] = time.perf_counter() - t0
+        check(staged[name].staging == name.replace(" ", "_"),
+              f"{name}: staged as {staged[name].staging!r}")
+    di = staged["device pack"]
+    fields, cat = di.on_device(dev)
     S = g_bucket * di.cfg.slots_per_block
     print(f"dispatch shape: F={len(frames)} groups={g_bucket} S={S} "
           f"pack30={di.cfg.pack30}")
@@ -558,15 +756,33 @@ def phase_flagship(frame_sets, gofs):
     k1 = measure(lambda: sc._shift_compact_cuda(w0, zs, wc, valid),
                  lambda: sc.shift_compact_ops_reference(w0, zs, wc, valid),
                  nbytes=k1_bytes)
+    planes = planes_to_device(*di.arrays, dev)
     runs = {
         "words": words,
         "dispatch": lambda: reconstruct_batch_pretiled_packed(fields, cat, di.cfg),
+        "K5 + dispatch": lambda: reconstruct_batch_pretiled_packed(
+            planes[0], pack.pack_cat(*planes[1:], di.cfg), di.cfg),
     }
     ms = {name: [] for name in runs}
-    for name in ("words", "dispatch", "dispatch", "words"):  # in turns
+    for name in ("words", "dispatch", "K5 + dispatch", "K5 + dispatch",
+                 "dispatch", "words"):  # in turns
         ms[name].append(event_ms(runs[name]))
     ms_words = statistics.median(ms["words"])
     ms_dispatch = statistics.median(ms["dispatch"])
+    ms_k5_dispatch = statistics.median(ms["K5 + dispatch"])
+    # the H2D of each staging, host clock, in turns
+    h2d = {"device pack": lambda: planes_to_device(*di.arrays, dev),
+           "host pack": lambda: to_device(*staged["host pack"].arrays, dev)}
+    h2d_bytes = {name: sum(t.numel() * t.element_size() for t in put())
+                 for name, put in h2d.items()}
+    h2d_ms = {name: [] for name in h2d}
+    for name in ("device pack", "host pack", "host pack", "device pack"):
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h2d[name]()
+            torch.cuda.synchronize()
+            h2d_ms[name].append((time.perf_counter() - t0) * 1e3)
     ops, counts_t = reconstruct_batch_pretiled_packed(fields, cat, di.cfg)
     counts = counts_t.cpu().numpy()
     ms_fetch = event_ms(
@@ -575,49 +791,70 @@ def phase_flagship(frame_sets, gofs):
     from tpu_vpcc_torch.utils.stats import GofStats
 
     list(P._reconstruct_gof_device(gof, dev))  # warm
-    reps = 5
-    stages = GofStats()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        list(P._reconstruct_gof_device(gof, dev, stats=stages))
-    e2e_s = (time.perf_counter() - t0) / reps
+    reps = 3
+    stages = {name: GofStats() for name in STAGINGS}
+    e2e = {name: [] for name in STAGINGS}
+    for name in ("device pack", "host pack", "host pack", "device pack"):
+        with staged_as(name):
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                list(P._reconstruct_gof_device(gof, dev,
+                                               stats=stages[name]))
+                e2e[name].append(time.perf_counter() - t0)
     pts = sum(n_points[:len(frames)])
 
-    # the Decoder's throughput on 8 GOFs, one and two in flight, in turns
+    # the Decoder's throughput on 8 GOFs, one and two in flight, with
+    # each staging, in turns; every frame equal to the counted run's
     stream = gofs * 4
-    dec_s = {1: [], 2: []}
-    for depth in (1, 2, 2, 1):
-        t0 = time.perf_counter()
-        n = len(decode_gofs(stream, depth))
-        dec_s[depth].append(time.perf_counter() - t0)
-        check(n == len(stream) * len(frames), f"Decoder emitted {n} frames")
+    dec_s = {(name, d): [] for name in STAGINGS for d in (1, 2)}
+    for name, depth in (("device pack", 1), ("device pack", 2),
+                        ("host pack", 2), ("host pack", 1),
+                        ("host pack", 1), ("host pack", 2),
+                        ("device pack", 2), ("device pack", 1)):
+        with staged_as(name):
+            t0 = time.perf_counter()
+            got = decode_gofs(stream, depth)
+            dec_s[name, depth].append(time.perf_counter() - t0)
+        check(_same_frame_lists(got, out * 4),
+              f"Decoder ({name}, pipeline_gofs={depth}) differs from the "
+              f"counted run")
     n_dec = len(stream) * len(frames)
     print(f"Decoder.start_gofs (host clock, {len(stream)} GOFs, {n_dec} "
-          f"frames, {nvidia_smi_line()}): " + "; ".join(
-              f"pipeline_gofs={d}: runs {[round(s, 4) for s in v]} s, "
-              f"{n_dec / statistics.median(v):.1f} frames/s"
-              for d, v in dec_s.items()))
+          f"frames, every frame equal to the counted run's, "
+          f"{nvidia_smi_line()}): " + "; ".join(
+              f"{name}, pipeline_gofs={d}: runs {[round(s, 4) for s in v]} "
+              f"s, {n_dec / statistics.median(v):.1f} frames/s"
+              for (name, d), v in dec_s.items()))
     smi = nvidia_smi_line()
     print(measured_line(f"K1 at the flagship dispatch shape, "
                         f"{launches / len(gofs):g} launches per two-frame "
                         f"GOF", k1, smi))
     print(f"timings (median CUDA events, {smi}): gather+words "
-          f"{ms_words:.4f} ms (runs {ms['words']}); whole dispatch "
-          f"{ms_dispatch:.4f} ms (runs {ms['dispatch']}); "
-          f"fetch {ms_fetch:.4f} ms; host staging {stage_s * 1e3:.1f} ms")
-    print(f"device stage end to end (host clock, {len(frames)} frames, "
-          f"{pts} points): {e2e_s * 1e3:.1f} ms per GOF = "
-          f"{len(frames) / e2e_s:.1f} frames/s, {pts / e2e_s / 1e6:.2f} "
-          f"Mpoints/s")
-    print("device stage split (host clock, ms per GOF): " + ", ".join(
-        f"{k} {v * 1e3 / reps:.2f}"
-        for k, v in sorted(stages.stage_seconds.items())
-    ))
+          f"{ms_words:.4f} ms (runs {ms['words']}); whole dispatch on the "
+          f"cat {ms_dispatch:.4f} ms (runs {ms['dispatch']}); K5 and the "
+          f"dispatch on the planes {ms_k5_dispatch:.4f} ms (runs "
+          f"{ms['K5 + dispatch']}); fetch {ms_fetch:.4f} ms; host staging "
+          + ", ".join(f"{n} {v * 1e3:.1f} ms" for n, v in stage_s.items()))
+    print(f"H2D of a two-frame GOF (host clock, median of 6, {smi}): "
+          + "; ".join(f"{n} {h2d_bytes[n]:,} B in "
+                      f"{statistics.median(v):.2f} ms (runs "
+                      f"{[round(x, 2) for x in v]})"
+                      for n, v in h2d_ms.items()))
+    for name in STAGINGS:
+        e2e_s = statistics.median(e2e[name])
+        n_runs = len(e2e[name])
+        print(f"device stage end to end, {name} (host clock, {len(frames)} "
+              f"frames, {pts} points, median of {n_runs}): "
+              f"{e2e_s * 1e3:.1f} ms per GOF = {len(frames) / e2e_s:.1f} "
+              f"frames/s, {pts / e2e_s / 1e6:.2f} Mpoints/s; split (ms per "
+              f"GOF): " + ", ".join(
+                  f"{k} {v * 1e3 / n_runs:.2f}"
+                  for k, v in sorted(stages[name].stage_seconds.items())))
     print(f"peak device memory over the script: "
           f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
     return dict(k1, name="shift_compact", route="cuda", source=K1_SOURCE,
                 replaces=K1_REPLACES, launches=launches,
-                max_abs_err=k1_err), out
+                max_abs_err=k1_err), out, k5_launches
 
 
 def words_err(a, b) -> int:
@@ -636,12 +873,11 @@ def phase_k2w(gof):
 
     from tpu_vpcc_torch.atlas import groups as G
     from tpu_vpcc_torch.ops import payload
-    from tpu_vpcc_torch.ops.tiled import to_device
     from tpu_vpcc_torch.runtime import pipeline as P
 
     cfg, tables, g_bucket = P._gof_tables_and_bucket(gof)
     di = P._gof_device_inputs(gof, gof.metas, (cfg, tables), g_bucket)
-    fields, cat = to_device(*di.arrays, torch.device("cuda"))
+    fields, cat = di.on_device(torch.device("cuda"))
     gen = torch.Generator(device="cuda").manual_seed(45)
     fields45 = fields.clone()
     fields45[:, :, G.G_PLANE] = torch.randint(
@@ -689,13 +925,9 @@ def phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err):
         example_frames,
         example_gof,
     )
-    from tpu_vpcc_torch.ops import payload
+    from tpu_vpcc_torch.ops import pack, payload
     from tpu_vpcc_torch.ops import shift_compact as sc
-    from tpu_vpcc_torch.ops.tiled import (
-        reconstruct_batch_pretiled,
-        smooth_words,
-        to_device,
-    )
+    from tpu_vpcc_torch.ops.tiled import reconstruct_batch_pretiled, smooth_words
     from tpu_vpcc_torch.runtime import pipeline as P
     from tpu_vpcc_torch.runtime.host import _reconstruct_gof_oracle
     from tpu_vpcc_torch.tools.kernel_times import (
@@ -725,6 +957,7 @@ def phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err):
     torch.cuda.synchronize()
     sc.reset_launches()
     payload.reset_launches()
+    pack.reset_launches()
     t0 = time.perf_counter()
     out = decode_gofs(wide_gofs, depth=2)
     torch.cuda.synchronize()
@@ -733,10 +966,14 @@ def phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err):
     check(k2w_launches > 0 and k1f_launches > 0,
           f"the wide main path launched K2W {k2w_launches} and K1F "
           f"{k1f_launches} times")
+    check(pack.launches == k2w_launches,
+          f"the wide main path launched K5 {pack.launches} times for "
+          f"{k2w_launches} device-packed K2W dispatches")
     print(f"wide main path: Decoder.start_gofs, pipeline_gofs=2, "
           f"{len(wide_gofs)} GOFs, {len(out)} frames in {first_s:.3f} s "
           f"(first run), K2W launches {k2w_launches}, K1F launches "
-          f"{k1f_launches}, K1 launches {sc.launches}")
+          f"{k1f_launches}, K5 launches {pack.launches}, K1 launches "
+          f"{sc.launches}")
     n_frames = sum(len(f) for f in wide_sets)
     check(len(out) == n_frames, f"{len(out)} frames out for {n_frames} in")
     n_points = []
@@ -776,7 +1013,7 @@ def phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err):
     t0 = time.perf_counter()
     di = P._gof_device_inputs(gof, gof.metas, (cfg, tables), g_bucket)
     stage_s = time.perf_counter() - t0
-    fields, cat = to_device(*di.arrays, dev)
+    fields, cat = di.on_device(dev)
     w0, w1, w2, valid = payload.wide_words(fields, cat, di.cfg)
     sw = smooth_words(fields, w0, w1, w2, valid, di.cfg)
     got, n_got = sc.shift_compact_full(sw, valid)
@@ -877,7 +1114,7 @@ def phase_gather(fcfg, frame_sets, narrow_out):
         example_frames,
         example_gof,
     )
-    from tpu_vpcc_torch.ops import payload
+    from tpu_vpcc_torch.ops import pack, payload
     from tpu_vpcc_torch.ops import shift_compact as sc
     from tpu_vpcc_torch.ops.color import rgb8_from_yuv16
     from tpu_vpcc_torch.ops.reconstruct import gather_words, reconstruct_batch
@@ -941,14 +1178,15 @@ def phase_gather(fcfg, frame_sets, narrow_out):
     torch.cuda.reset_peak_memory_stats()
     sc.reset_launches()
     payload.reset_launches()
+    pack.reset_launches()
     t0 = time.perf_counter()
     out = decode_gofs(gofs, depth=2)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {"K1F": sc.full_launches, "K1": sc.launches,
-                "K2W": payload.launches}
+                "K2W": payload.launches, "K5": pack.launches}
     peak_run = torch.cuda.max_memory_allocated()
-    check(launches == {"K1F": dispatches, "K1": 0, "K2W": 0},
+    check(launches == {"K1F": dispatches, "K1": 0, "K2W": 0, "K5": 0},
           f"the gather main path launched {launches} for {dispatches} "
           f"gather dispatches")
     print(f"gather main path: Decoder.start_gofs, pipeline_gofs=2, "
@@ -1138,19 +1376,33 @@ def _ply_outputs(out_dir, entry, where):
 
 
 def _launch_counts():
-    from tpu_vpcc_torch.ops import payload
+    from tpu_vpcc_torch.ops import pack, payload
     from tpu_vpcc_torch.ops import shift_compact as sc
 
     return {"K1": sc.launches, "K2W": payload.launches,
-            "K1F": sc.full_launches}
+            "K1F": sc.full_launches, "K5": pack.launches}
 
 
 def _reset_launches():
-    from tpu_vpcc_torch.ops import payload
+    from tpu_vpcc_torch.ops import pack, payload
     from tpu_vpcc_torch.ops import shift_compact as sc
 
     sc.reset_launches()
     payload.reset_launches()
+    pack.reset_launches()
+
+
+def _quantized(stream: Path) -> bool:
+    """Whether the stream's atlas codes quantized patch extents (whose
+    cats the host packs, as the reference does)."""
+    from tpu_vpcc_torch.bitio import Bitstream
+    from tpu_vpcc_torch.v3c.context import Context
+    from tpu_vpcc_torch.v3c.stream import SampleStreamV3CUnit
+
+    ssvu = SampleStreamV3CUnit.from_bitstream(Bitstream(stream.read_bytes()))
+    ctx = Context()
+    ssvu.decode_gof(ctx)
+    return bool(ctx.get_asps(0).patch_size_quantizer_present_flag)
 
 
 def phase_stream():
@@ -1182,9 +1434,14 @@ def phase_stream():
             dt = time.perf_counter() - t0
             launches = _launch_counts()
             check(rc == 0, f"{name}: the CLI on the card exited {rc}")
-            check(launches == e.launches,
+            check({k: launches[k] for k in e.launches} == e.launches,
                   f"{name}: kernel launches {launches}, manifest "
                   f"{e.launches}")
+            # K5 packs each device-packed tiled dispatch's cat
+            k5 = 0 if _quantized(e.stream) else (e.launches["K1"]
+                                                  + e.launches["K2W"])
+            check(launches["K5"] == k5,
+                  f"{name}: K5 launched {launches['K5']} times, want {k5}")
             rc = cli.main([*args, "-o", str(tmp / name / "oracle"),
                            "--oracle", "--device", "cpu"])
             check(rc == 0, f"{name}: the oracle CLI exited {rc}")
@@ -1215,7 +1472,8 @@ def phase_stream():
         for m in multi:
             _ply_outputs(tmp / "multi" / m.stream.stem, m, "several -i")
         check(launches["K1"] > 0 and launches["K2W"] > 0
-              and launches["K1F"] > 0,
+              and launches["K1F"] > 0
+              and launches["K5"] == launches["K1"] + launches["K2W"],
               f"several -i: kernel launches {launches}")
         print(f"several -i ({', '.join(m.name for m in multi)}, "
               f"{' '.join(store.multi['flags'])}): each stream's files "
@@ -1227,10 +1485,11 @@ def phase_stream():
 
 def flagship_stream(store):
     """``STREAM_FLAGSHIP`` through ``Decoder(Params(stream,
-    device="cuda"))``, one and two GOFs in flight, in turns: its stream
-    repeated to :data:`STREAM_GOFS` GOFs (each GOF starts at its VPS),
-    every frame equal to the GOF's first decode, whose PLY bytes match
-    the manifest; host clock, ``DecodeStats`` stage split per GOF."""
+    device="cuda"))``, one and two GOFs in flight, with the device pack
+    and the host pack (:func:`staged_as`), in turns: its stream repeated to
+    :data:`STREAM_GOFS` GOFs (each GOF starts at its VPS), every frame
+    equal to the GOF's first decode, whose PLY bytes match the manifest;
+    host clock, ``DecodeStats`` stage split per GOF."""
     import hashlib
 
     import numpy as np
@@ -1244,17 +1503,21 @@ def flagship_stream(store):
     # the sample stream header once, then the GOF's units again
     data = one + one[1:] * (STREAM_GOFS - 1)
     n_frames = STREAM_GOFS * len(e.outputs)
-    runs = {1: [], 2: []}
-    splits = {1: [], 2: []}
+    turns = (("device pack", 1), ("device pack", 2), ("host pack", 2),
+             ("host pack", 1), ("host pack", 1), ("host pack", 2),
+             ("device pack", 2), ("device pack", 1))
+    runs = {turn: [] for turn in turns}
+    splits = {turn: [] for turn in turns}
     first = None
-    for depth in (1, 2, 2, 1):
-        dec = Decoder(Params(data, device="cuda", pipeline_gofs=depth,
-                             **e.params))
-        t0 = time.perf_counter()
-        dec.start()
-        frames = list(dec)
-        runs[depth].append(time.perf_counter() - t0)
-        splits[depth].append(dec.stats.stage_totals())
+    for name, depth in turns:
+        with staged_as(name):
+            dec = Decoder(Params(data, device="cuda", pipeline_gofs=depth,
+                                 **e.params))
+            t0 = time.perf_counter()
+            dec.start()
+            frames = list(dec)
+        runs[name, depth].append(time.perf_counter() - t0)
+        splits[name, depth].append(dec.stats.stage_totals())
         check(len(frames) == n_frames,
               f"{STREAM_FLAGSHIP}: {len(frames)} frames, want {n_frames}")
         if first is None:
@@ -1276,16 +1539,17 @@ def flagship_stream(store):
           f"'cuda')), HEVC replaced by the store lookup ({smi}): "
           f"{STREAM_GOFS} GOFs of {len(e.outputs)} 1280^2 frames, "
           f"{pts} points a GOF; " + "; ".join(
-              f"pipeline_gofs={d}: runs {[round(s, 4) for s in v]} s, "
+              f"{name}, pipeline_gofs={d}: runs "
+              f"{[round(s, 4) for s in v]} s, "
               f"{n_frames / statistics.median(v):.2f} frames/s"
-              for d, v in runs.items()))
-    for depth, totals in splits.items():
+              for (name, d), v in runs.items()))
+    for (name, depth), totals in splits.items():
         med = {k: statistics.median(t.get(k, 0.0) for t in totals)
                for k in totals[0]}
-        print(f"{STREAM_FLAGSHIP} stage split, pipeline_gofs={depth} "
-              f"(host clock, ms per GOF, median of 2 runs; host_prepare "
-              f"holds video_decode, the store lookup, and reconstruct "
-              f"holds the recon_ stages): " + ", ".join(
+        print(f"{STREAM_FLAGSHIP} stage split, {name}, pipeline_gofs="
+              f"{depth} (host clock, ms per GOF, median of 2 runs; "
+              f"host_prepare holds video_decode, the store lookup, and "
+              f"reconstruct holds the recon_ stages): " + ", ".join(
                   f"{STAGE_LABELS.get(k, k)} {v * 1e3 / STREAM_GOFS:.2f}"
                   for k, v in sorted(med.items())))
 
@@ -1307,7 +1571,6 @@ def phase_cursor(gof, S_flag: int):
 
     from tpu_vpcc_torch.ops import cursor_compact as k3
     from tpu_vpcc_torch.ops import payload
-    from tpu_vpcc_torch.ops.tiled import to_device
     from tpu_vpcc_torch.runtime import pipeline as P
     from tpu_vpcc_torch.tools import compaction_experiment as E
     from tpu_vpcc_torch.tools.kernel_times import (
@@ -1346,7 +1609,7 @@ def phase_cursor(gof, S_flag: int):
     # the flagship's own wide words (K2W on the first GOF's staging)
     cfg, tables, g_bucket = P._gof_tables_and_bucket(gof)
     di = P._gof_device_inputs(gof, gof.metas, (cfg, tables), g_bucket)
-    fields, cat = to_device(*di.arrays, dev)
+    fields, cat = di.on_device(dev)
     w0, w1, w2, valid = payload.wide_words(fields, cat, di.cfg)
     got = k3.cursor_compact(w0, w1, w2, valid)
     ref = k3.cursor_compact_reference(w0, w1, w2, valid)
@@ -1515,15 +1778,14 @@ def phase_batcher(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
     streams of two prepared GOFs, counted, each frame byte-equal to its
     earlier decode; then frames/s beside ``Decoder.start_gofs``, the stage
     split, peak memory and the narrow merged input at chunks of 2-12."""
+    from dataclasses import replace
+
     import numpy as np
     import torch
 
-    from tpu_vpcc_torch.ops import payload
+    from tpu_vpcc_torch.ops import pack, payload
     from tpu_vpcc_torch.ops import shift_compact as sc
-    from tpu_vpcc_torch.ops.tiled import (
-        reconstruct_batch_pretiled_packed,
-        to_device,
-    )
+    from tpu_vpcc_torch.ops.tiled import reconstruct_batch_pretiled_packed
     from tpu_vpcc_torch.parallel import batcher as B
     from tpu_vpcc_torch.runtime import pipeline as P
     from tpu_vpcc_torch.tools.kernel_times import event_ms, nvidia_smi_line
@@ -1554,12 +1816,13 @@ def phase_batcher(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
         torch.cuda.reset_peak_memory_stats()
         sc.reset_launches()
         payload.reset_launches()
+        pack.reset_launches()
         t0 = time.perf_counter()
         out = run_batcher(streams)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = {"K1": sc.launches, "K2W": payload.launches,
-                    "K1F": sc.full_launches}
+                    "K1F": sc.full_launches, "K5": pack.launches}
         peak = torch.cuda.max_memory_allocated()
     finally:
         B._dispatch_chunked, B._dispatch_device = real_chunked, real_device
@@ -1578,7 +1841,8 @@ def phase_batcher(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
           f"the 12-frame narrow input was not dispatched as 6 chunks of "
           f"{P.DEVICE_BATCH}: {chunks}")
     check(launches == {"K1": n["narrow"], "K2W": n["wide"],
-                       "K1F": n["wide"] + n["gather"]},
+                       "K1F": n["wide"] + n["gather"],
+                       "K5": n["narrow"] + n["wide"]},
           f"launches {launches} for {n} chunks")
     for s, (got, ref) in enumerate(zip(out, want)):
         check(len(got) == len(ref), f"stream {s}: {len(got)} frames, want "
@@ -1628,9 +1892,8 @@ def phase_batcher(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
 
     def dispatch_all(chunk):
         for i in range(0, di.n_frames, chunk):
-            reconstruct_batch_pretiled_packed(
-                *to_device(*(a[i:i + chunk] for a in di.arrays), dev),
-                di.cfg)
+            sub = replace(di, arrays=tuple(a[i:i + chunk] for a in di.arrays))
+            reconstruct_batch_pretiled_packed(*sub.on_device(dev), di.cfg)
 
     lines = []
     try:
@@ -1652,8 +1915,8 @@ def phase_batcher(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
                 f"peak {torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
     finally:
         P.DEVICE_BATCH = 2
-    print(f"narrow merged input of {di.n_frames} frames by chunk size "
-          f"({smi}): " + "; ".join(lines))
+    print(f"narrow merged input of {di.n_frames} frames by chunk size, "
+          f"device-packed ({smi}): " + "; ".join(lines))
 
 
 def phase_color():
@@ -1697,7 +1960,7 @@ def phase_mesh(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
     import numpy as np
     import torch
 
-    from tpu_vpcc_torch.ops import payload
+    from tpu_vpcc_torch.ops import pack, payload
     from tpu_vpcc_torch.ops import shift_compact as sc
     from tpu_vpcc_torch.ops import smoothing as S
     from tpu_vpcc_torch.ops.reconstruct import reconstruct_batch
@@ -1777,6 +2040,7 @@ def phase_mesh(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
             sync()
             sc.reset_launches()
             payload.reset_launches()
+            pack.reset_launches()
             t0 = time.perf_counter()
             dec = Decoder(Params(device="cuda", mesh=mesh))
             dec.start_gofs(set_gofs)
@@ -1784,19 +2048,24 @@ def phase_mesh(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
             sync()
             secs = time.perf_counter() - t0
             launches = {"K1": sc.launches, "K2W": payload.launches,
-                        "K1F": sc.full_launches}
+                        "K1F": sc.full_launches, "K5": pack.launches}
             fallbacks = dec.stats.counter_totals().get(
                 "mesh_fallback_dispatches", 0)
             shards = data * space
+            # K5 runs once on each distinct device of each data row
+            rows = sum(len(dict.fromkeys(mesh.devices[r]))
+                       for r in range(data))
             expect = {
-                "narrow": {"K1": shards * chunks, "K2W": 0, "K1F": 0},
+                "narrow": {"K1": shards * chunks, "K2W": 0, "K1F": 0,
+                           "K5": rows * chunks},
                 "wide": {"K1": 0, "K2W": shards * chunks,
-                         "K1F": shards * chunks},
-                "gather R": {"K1": 0, "K2W": 0, "K1F": chunks},
+                         "K1F": shards * chunks, "K5": rows * chunks},
+                "gather R": {"K1": 0, "K2W": 0, "K1F": chunks, "K5": 0},
             }[name]
             check(launches == expect,
                   f"{where}, {name}: launches {launches}, want {expect} "
-                  f"({shards} shards x {chunks} chunks)")
+                  f"({shards} shards x {chunks} chunks, K5 {rows} "
+                  f"row devices x {chunks} chunks)")
             check((fallbacks >= 1) == (name == "gather R"),
                   f"{where}, {name}: {fallbacks} mesh fallback dispatches")
             check(len(out) == len(want), f"{where}, {name}: {len(out)} "
@@ -1808,8 +2077,8 @@ def phase_mesh(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
             line = (f"mesh {where}: {name}, {len(set_gofs)} GOFs, "
                     f"{len(out)} frames byte-equal to the meshless decode "
                     f"in {secs:.3f} s, launches {launches} = {shards} shards "
-                    f"x {chunks} chunks, mesh_fallback_dispatches "
-                    f"{fallbacks}")
+                    f"x {chunks} chunks (K5: {rows} row devices x {chunks} "
+                    f"chunks), mesh_fallback_dispatches {fallbacks}")
             if name == "wide":
                 moved = _moved(out[:n_sm], narrow_out[:n_sm])
                 check(moved == moved_want and moved[0] > 0,
@@ -1962,7 +2231,8 @@ def main() -> int:
         fcfg, frame_sets, gofs, S_flag = flagship_inputs()
         phase_k1(S_flag)
         k1f_err = phase_k1f(S_flag)
-        k1, narrow_out = phase_flagship(frame_sets, gofs)
+        k5 = phase_k5(gofs[0])
+        k1, narrow_out, k5["launches"] = phase_flagship(frame_sets, gofs)
         k2w_err = phase_k2w(gofs[0])
         wide, wide_gofs, wide_out = phase_wide(fcfg, frame_sets, narrow_out,
                                                k1f_err, k2w_err)
@@ -1990,7 +2260,7 @@ def main() -> int:
 
     smi = nvidia_smi_line()
     kernels = [dict(k, card=k.get("card", smi))
-               for k in [k1] + wide + [gather, k3] + probe_kernels]
+               for k in [k1] + wide + [gather, k3, k5] + probe_kernels]
     print(json.dumps({"kernels": kernels}))
     _ok_lines(smi)
     return 0

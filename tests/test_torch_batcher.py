@@ -245,10 +245,11 @@ def test_prepared_mixed_paths(device, monkeypatch):
     """Prepared GOFs of the three paths, two streams each, through the
     wave loop: each stream equals ``Decoder.start_gofs`` on the CPU and
     the oracle; on the card the K1, K2W and K1F launch counters advance
-    by exactly the narrow, wide and gather chunks."""
+    by exactly the narrow, wide and gather chunks, and K5's by the
+    narrow and wide (device-packed) chunks."""
     import torch
 
-    from tpu_vpcc_torch.ops import payload
+    from tpu_vpcc_torch.ops import pack, payload
     from tpu_vpcc_torch.ops import shift_compact as sc
 
     if device == "cuda" and not torch.cuda.is_available():
@@ -257,16 +258,18 @@ def test_prepared_mixed_paths(device, monkeypatch):
     streams = [[_prepared_gof(k, s), _prepared_gof(k, s + 2)]
                for k in kinds for s in (0, 10)]
     calls = spy_on(monkeypatch, "_dispatch_device")
-    before = (sc.launches, payload.launches, sc.full_launches)
+    before = (sc.launches, payload.launches, sc.full_launches,
+              pack.launches)
     got = _waves(streams, device=device)
     n = {k: sum(c[1] == k for c in calls) for k in kinds}
     assert n["narrow"] > 0 and n["wide"] > 0 and n["gather"] > 0, calls
     launched = (sc.launches - before[0], payload.launches - before[1],
-                sc.full_launches - before[2])
+                sc.full_launches - before[2], pack.launches - before[3])
     if device == "cuda":
-        assert launched == (n["narrow"], n["wide"], n["wide"] + n["gather"])
+        assert launched == (n["narrow"], n["wide"], n["wide"] + n["gather"],
+                            n["narrow"] + n["wide"])
     else:
-        assert launched == (0, 0, 0)
+        assert launched == (0, 0, 0, 0)
     for k, stream in enumerate(streams):
         assert len(got[k]) == 4
         assert got[k] == _start_gofs(stream, device="cpu")
@@ -330,6 +333,48 @@ def test_colour_mode_and_group_bucket_split_dispatches(monkeypatch):
         assert got[list(gofs).index(k)] == _start_gofs([oracle],
                                                        use_device=False)
     assert got[0] != got[1]  # the content changes the colours
+
+
+def test_host_and_device_packed_inputs_never_merge(monkeypatch):
+    """Four streams of prepared narrow GOFs with one configuration, the
+    GOFs of two of them staged by the host pack
+    (``test_torch_dispatch.host_pack_staging``): equal staged configs,
+    batch keys that differ only in the staging, and the first wave
+    dispatches the host cats and the device pack's planes apart. Every
+    stream equals ``Decoder.start_gofs``."""
+    from test_torch_dispatch import host_pack_staging
+
+    from tpu_vpcc_torch.runtime import pipeline as P
+
+    streams = [[_prepared_gof("narrow", s)] for s in (0, 2, 4, 6)]
+    host_packed = {id(streams[1][0]), id(streams[3][0])}
+    merged = []
+    real_chunked = batcher._dispatch_chunked
+
+    def spy(di, device, stats=None, mesh=None):
+        merged.append((di.n_frames, di.staging, len(di.arrays)))
+        return real_chunked(di, device, stats=stats, mesh=mesh)
+
+    monkeypatch.setattr(batcher, "_dispatch_chunked", spy)
+    with host_pack_staging(only=lambda g: id(g) in host_packed) as restaged:
+        staged = []
+        for s in (0, 1):
+            g = streams[s][0]
+            cfg, tables, g_bucket = P._gof_tables_and_bucket(g)
+            staged.append(batcher._gof_device_inputs(
+                g, g.metas, (cfg, tables), g_bucket))
+        got = _waves(streams)
+    assert len(restaged) == 3  # stream 1 above, streams 1 and 3 in the wave
+    assert staged[0].cfg == staged[1].cfg
+    assert [d.staging for d in staged] == ["device_pack", "host_pack"]
+    key = [list(d.batch_key) for d in staged]
+    assert key[0][1] != key[1][1]
+    del key[0][1], key[1][1]
+    assert key[0] == key[1]
+    assert sorted(merged) == [(4, "device_pack", 8), (4, "host_pack", 2)], (
+        merged)
+    for k, stream in enumerate(streams):
+        assert got[k] == _start_gofs(stream, device="cpu")
 
 
 @needs_encoder

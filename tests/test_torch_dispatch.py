@@ -7,11 +7,20 @@ kernel, interpreted) and ``_fetch_prefixes_packed``. Port side: the same
 staged arrays carried across by ``inputs_from_reference``, then its own
 dispatch and fetch on torch CPU tensors. Positions and colours of every
 frame must be byte-equal up to the frame's count.
+
+The device-pack cases drop those knobs: tpu_vpcc then runs its own CPU
+default on the raw block-tiled arrays (the pack and the orientation fix
+on the device), and the port runs both of its stagings through
+``pipeline._dispatch_device``, the device pack (K5's plain version) and
+the host pack.
 """
+from contextlib import contextmanager
 from dataclasses import replace
+from unittest import mock
 
 import numpy as np
 import pytest
+import torch
 
 from tpu_vpcc.models import flagship as ref_flagship
 from tpu_vpcc.ops import tiled as ref_tiled
@@ -159,3 +168,135 @@ def test_inputs_from_reference_rejects_unported_layouts():
                                 (fields, cat) + (None,) * 5)
     with pytest.raises(ValueError):
         T.inputs_from_reference(cfg, (fields, cat, cat) + (None,) * 4)
+
+
+def _ref_case(case):
+    """The raw block-tiled arrays and tpu_vpcc's config of a CASES case."""
+    mc, maps, changes, chroma_full, color_mode = CASES[case]
+    frames = _frames(seed=len(case), map_count=mc)
+    tiled, cs = _tiled(frames, maps, chroma_full)
+    fcfg = ref_flagship.FlagshipConfig(W, H, RES, PREC)
+    _, cfg_ref, _, _ = ref_flagship.bucket_flagship_inputs(
+        (tiled[0],), fcfg.frame_config()
+    )
+    cfg_ref = replace(cfg_ref, shift_compact=0, sort_split=1,
+                      sort_split_batched=False, chroma_shift=cs)
+    return tiled, replace(cfg_ref, **changes), color_mode
+
+
+def port_cfg(cfg_ref):
+    """The port's FrameConfig of tpu_vpcc's, field by field."""
+    from dataclasses import fields as dc_fields
+
+    from tpu_vpcc_torch.ops.reconstruct import FrameConfig
+
+    return FrameConfig(**{f.name: getattr(cfg_ref, f.name)
+                          for f in dc_fields(FrameConfig)})
+
+
+def count_plain_packs(monkeypatch):
+    """A list that grows by one at each call of K5's plain version."""
+    from tpu_vpcc_torch.ops import pack
+
+    calls = []
+    real = pack.pack_cat_plain
+    monkeypatch.setattr(pack, "pack_cat_plain",
+                        lambda *a: calls.append(1) or real(*a))
+    return calls
+
+
+def host_packed(di):
+    """A device-pack dispatch staged again as the port stages quantized
+    extents: the cat packed on the host from the same planes."""
+    fields, *planes, _swap = di.arrays
+    arrays, cfg = T.stage_cat_inputs(fields, *planes, di.cfg)
+    return replace(di, cfg=cfg, staging="host_pack", arrays=arrays)
+
+
+@contextmanager
+def host_pack_staging(only=lambda gof: True):
+    """While open, every dispatch of a GOF (``only(gof)``) that
+    ``pipeline`` and ``batcher`` stage for the device pack is staged by
+    the host pack instead (:func:`host_packed`). Yields the list of the
+    dispatches so staged."""
+    from tpu_vpcc_torch.parallel import batcher
+
+    real = P._gof_device_inputs
+    staged = []
+
+    def stage(gof, *args, **kw):
+        di = real(gof, *args, **kw)
+        if di.staging != "device_pack" or not only(gof):
+            return di
+        staged.append(host_packed(di))
+        return staged[-1]
+
+    with mock.patch.object(P, "_gof_device_inputs", stage), \
+            mock.patch.object(batcher, "_gof_device_inputs", stage):
+        yield staged
+
+
+def dispatch_both_stagings(tiled, cfg, color_mode, monkeypatch):
+    """The port's dispatch of ``tiled`` through ``_dispatch_device`` on
+    the CPU, device-packed and host-packed: ``{staging: frames}``, each
+    frame a host ``(positions, colours)``. The plain pack runs once, on
+    the device-packed dispatch."""
+    calls = count_plain_packs(monkeypatch)
+    arrays, scfg = T.stage_plane_inputs(*tiled, cfg)
+    assert scfg.host_oriented
+    di = P.DeviceInputs(cfg=scfg, staging="device_pack", arrays=arrays,
+                        n_frames=tiled[0].shape[0], color_mode=color_mode)
+    outs = {}
+    for d in (di, host_packed(di)):
+        outs[d.staging] = P._dispatch_device(d, torch.device("cpu"))
+        assert len(calls) == 1
+    return outs
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_device_pack_dispatch_matches_reference_default(case, monkeypatch):
+    """tpu_vpcc without the TPU's knobs (its CPU default: raw tiled
+    arrays, pack and orientation fix on the device), the port's
+    device-packed and host-packed dispatches: equal counts, byte-equal
+    compacted prefixes."""
+    monkeypatch.delenv("TPU_VPCC_HOSTPACK")
+    monkeypatch.delenv("TPU_VPCC_HOSTORIENT")
+    tiled, cfg_ref, color_mode = _ref_case(case)
+    assert not cfg_ref.host_oriented
+    ops, counts = ref_tiled.reconstruct_batch_pretiled_packed(*tiled,
+                                                              cfg=cfg_ref)
+    counts = np.asarray(counts)
+    assert counts.min() > 0
+    pos_r, col_r = ref_pipeline._fetch_prefixes_packed(ops, counts,
+                                                       color_mode)
+    outs = dispatch_both_stagings(tiled, port_cfg(cfg_ref), color_mode,
+                                  monkeypatch)
+    for frames in outs.values():
+        assert len(frames) == len(counts)
+        for f, (pos, col) in enumerate(frames):
+            n = counts[f]
+            assert len(pos) == n and len(col) == n
+            assert pos.dtype == pos_r.dtype and col.dtype == col_r.dtype
+            np.testing.assert_array_equal(pos, pos_r[f, :n])
+            np.testing.assert_array_equal(col, col_r[f, :n])
+
+
+def test_inputs_from_reference_takes_raw_tiled_arrays():
+    """The reference's seven raw block-tiled arrays are read as tiled
+    planes, not raster ones: packed on the device by the port's device
+    pack, byte-equal to the reference's host-packed, host-oriented cat
+    of the same arrays; raster arrays still give the gather's tensors."""
+    tiled, cfg_ref, _ = _ref_case("pack30")
+    cfg, fields, cat = T.inputs_from_reference(cfg_ref, tiled)
+    assert cfg.host_oriented and not cfg_ref.host_oriented
+    (ref_fields, ref_cat, *_), ref_cfg = ref_tiled.stage_cat_inputs(
+        *tiled, cfg_ref)
+    assert ref_cfg.host_oriented
+    np.testing.assert_array_equal(fields.numpy(), ref_fields)
+    assert cat.dtype == torch.int32
+    np.testing.assert_array_equal(cat.numpy().view(np.uint32), ref_cat)
+    fcfg = port_flagship.FlagshipConfig(W, H, RES, PREC, batch=2)
+    raster = port_flagship.example_batch_inputs(fcfg, frames=_frames(3, 2))
+    got = T.inputs_from_reference(cfg_ref, raster)
+    assert len(got) == 8 and not got[0].host_oriented
+    assert tuple(got[3].shape) == raster[2].shape  # geo0 (F, H, W)

@@ -1,7 +1,12 @@
 """Fixture streams decoded by the PyTorch port on the CPU.
 
 The PLY bytes of every frame must equal tpu_vpcc's device decode (JAX on
-the CPU) and the numpy oracle's. The port never imports jax: subprocesses
+the CPU, its default there: the cat packed on the device) and the numpy
+oracle's. The port's tiled frames take its default too, the device pack
+(K5's plain version here); two families run again with the host pack
+(the port's staging of quantized patch extents, forced on every tiled
+dispatch by ``test_torch_dispatch.host_pack_staging``), and quantized
+patch extents stay host-packed. The port never imports jax: subprocesses
 decode through ``Decoder`` and ``python -m tpu_vpcc_torch.runtime.cli``
 (a plain and a smoothing stream) and then check ``sys.modules``. Streams
 with rotated orientations, and prepared GOFs with rotated orientations or
@@ -16,6 +21,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from test_torch_dispatch import count_plain_packs, host_pack_staging
 from tpu_vpcc.atlas.patches import Patch, _check_orientation_in_range
 from tpu_vpcc.runtime import cli as ref_cli
 from tpu_vpcc.runtime.pipeline import Decoder as RefDecoder
@@ -254,10 +260,13 @@ def _decode(decoder_cls, params_cls, data, **kw):
 
 @needs_encoder
 @pytest.mark.parametrize("name", sorted(STREAMS))
-def test_stream_matches_reference_and_oracle(name):
+def test_stream_matches_reference_and_oracle(name, monkeypatch):
     data = STREAMS[name]()
     kw = STREAM_PARAMS.get(name, {})
+    packs = count_plain_packs(monkeypatch)
     got = _decode(Decoder, Params, data, device="cpu", **kw)
+    # the tiled families pack on the device; the gather packs nothing
+    assert (len(packs) > 0) == (not name.startswith("rotated"))
     ref = _decode(RefDecoder, RefParams, data, **kw)
     oracle = _decode(RefDecoder, RefParams, data, use_device=False, **kw)
     port_oracle = _decode(Decoder, Params, data, use_device=False, **kw)
@@ -269,6 +278,55 @@ def test_stream_matches_reference_and_oracle(name):
     assert got == ref
     assert got == oracle
     assert port_oracle == oracle
+
+
+@needs_encoder
+@pytest.mark.parametrize("name", ["three_maps", "smoothing_secondary"])
+def test_stream_under_host_pack_matches_device_pack(name, monkeypatch):
+    """The port's host pack on every tiled dispatch of a stream: no plain
+    device pack runs, and the bytes equal those of the port's default
+    device pack and of tpu_vpcc's decode under its host-pack knob
+    ``TPU_VPCC_HOSTPACK=1``."""
+    data = STREAMS[name]()
+    kw = STREAM_PARAMS.get(name, {})
+    device_packed = _decode(Decoder, Params, data, device="cpu", **kw)
+    packs = count_plain_packs(monkeypatch)
+    with host_pack_staging() as staged:
+        got = _decode(Decoder, Params, data, device="cpu", **kw)
+    assert staged and not packs
+    assert got == device_packed
+    monkeypatch.setenv("TPU_VPCC_HOSTPACK", "1")
+    assert got == _decode(RefDecoder, RefParams, data, **kw)
+
+
+@needs_encoder
+def test_quantized_stream_stays_host_packed(monkeypatch):
+    """Quantized patch extents: the trim exists only as a bit mask in a
+    host cat, so the port host-packs them, as tpu_vpcc does; the bytes
+    equal tpu_vpcc's decode and the oracle's."""
+    from test_size_quantizer import make_quantized_frame
+
+    from tpu_vpcc_torch.runtime import pipeline as P
+
+    q = (1, 2)
+    sf, _ = make_quantized_frame(np.random.default_rng(47),
+                                 [(10, 12), (4, 28), (8, 16)], q=q,
+                                 occupancy_fill=0.8)
+    data = build_fixture_stream([sf], size_quantizer=q)
+    staged = []
+    real = P._dispatch_device
+
+    def spy(di, *a, **k):
+        staged.append(di.staging)
+        return real(di, *a, **k)
+
+    monkeypatch.setattr(P, "_dispatch_device", spy)
+    packs = count_plain_packs(monkeypatch)
+    got = _decode(Decoder, Params, data, device="cpu")
+    assert staged == ["host_pack"] and not packs
+    assert len(got) == 1 and b"element vertex 0" not in got[0]
+    assert got == _decode(RefDecoder, RefParams, data)
+    assert got == _decode(RefDecoder, RefParams, data, use_device=False)
 
 
 def test_cli_matches_reference_cli_and_stays_jax_free(tmp_path):

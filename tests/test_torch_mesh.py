@@ -18,6 +18,7 @@ without one).
 from __future__ import annotations
 
 import logging
+from contextlib import nullcontext
 from dataclasses import fields as dc_fields
 from dataclasses import replace
 
@@ -29,6 +30,7 @@ import jax.numpy as jnp
 
 from test_sharding import ARGS, make_batch, tile_batch
 from test_torch_batcher import _prepared_gof, make_streams
+from test_torch_dispatch import count_plain_packs, host_pack_staging
 from test_torch_e2e import STREAM_PARAMS, STREAMS, needs_encoder
 from tpu_vpcc.ops import reconstruct as ref_reconstruct
 from tpu_vpcc.ops.smoothing import AttrSmoothingConfig as RefAttrSmoothing
@@ -40,11 +42,15 @@ from tpu_vpcc.runtime.pipeline import Decoder as RefDecoder
 from tpu_vpcc.runtime.pipeline import Params as RefParams
 from tpu_vpcc.runtime.pipeline import _fetch_sharded_packed as ref_fetch_packed
 from tpu_vpcc.utils.ply import format_ply
-from tpu_vpcc_torch.ops import payload
+from tpu_vpcc_torch.ops import pack, payload
 from tpu_vpcc_torch.ops import reconstruct as R
 from tpu_vpcc_torch.ops import shift_compact as sc
 from tpu_vpcc_torch.ops import smoothing as S
-from tpu_vpcc_torch.ops.tiled import gather_inputs_to_device, stage_cat_inputs
+from tpu_vpcc_torch.ops.tiled import (
+    gather_inputs_to_device,
+    host_cat_stager,
+    stage_cat_inputs,
+)
 from tpu_vpcc_torch.parallel import batcher
 from tpu_vpcc_torch.parallel import mesh as port_mesh
 from tpu_vpcc_torch.parallel import spatial
@@ -182,7 +188,7 @@ def test_pretiled_packed_matches_reference(device, pack30, data, space):
     fields, cat, pcfg = staged(cfg, batch)
     before = sc.launches
     ops, cnt, totals = spatial.reconstruct_gof_spatial_pretiled_packed(
-        mesh, fields, cat, pcfg)
+        mesh, *host_cat_stager(fields, cat), pcfg)
     if device == "cuda":
         assert sc.launches == before + data * space
     assert len(ops) == data and all(len(row) == space for row in ops)
@@ -221,7 +227,7 @@ def test_pretiled_wide_matches_reference(device, smooth, data, space):
     fields, cat, pcfg = staged(cfg, batch, **kw)
     before = (payload.launches, sc.full_launches)
     ops, cnt, totals = spatial.reconstruct_gof_spatial_pretiled(
-        mesh, fields, cat, pcfg)
+        mesh, *host_cat_stager(fields, cat), pcfg)
     if device == "cuda":
         assert (payload.launches, sc.full_launches) == (
             before[0] + data * space, before[1] + data * space)
@@ -238,22 +244,23 @@ def test_pretiled_wide_matches_reference(device, smooth, data, space):
 def test_sharded_smoothing_matches_unsharded(device):
     """On a smoothed 128^2 GOF the wide path over 4 'space' shards equals
     the unsharded dispatch, and smoothing moved points."""
-    from tpu_vpcc_torch.ops.tiled import reconstruct_batch_pretiled, to_device
+    from tpu_vpcc_torch.ops.tiled import reconstruct_batch_pretiled
     from tpu_vpcc_torch.runtime import pipeline as P
 
     gof = _prepared_gof("wide", 0)
     cfg, tables, g_bucket = P._gof_tables_and_bucket(gof, 4)
     di = P._gof_device_inputs(gof, gof.metas, (cfg, tables), g_bucket)
+    assert di.staging == "device_pack"
     dev = _device(device)
     mesh = port_mesh.make_mesh([dev] * 4, data=1, space=4)
     s_loc = g_bucket // 4 * cfg.slots_per_block
 
     def sharded(c):
         ops, cnt, _ = spatial.reconstruct_gof_spatial_pretiled(
-            mesh, *di.arrays, c)
+            mesh, *di.cat_stager(), c)
         return _fetch_sharded_packed(ops, cnt, 4, s_loc, layout="wide")
 
-    ops, cnt = reconstruct_batch_pretiled(*to_device(*di.arrays, dev), di.cfg)
+    ops, cnt = reconstruct_batch_pretiled(*di.on_device(dev), di.cfg)
     cnt = cnt.cpu().numpy()
     whole = [(p[: cnt[k]], c[: cnt[k]]) for k, (p, c) in enumerate(
         zip(*P._fetch_prefixes_packed(ops, cnt, layout="wide")))]
@@ -477,12 +484,13 @@ def test_prepared_gofs_on_mesh(device, data, space):
     dev = _device(device)
     mesh = port_mesh.make_mesh([dev] * (data * space), data=data, space=space)
     for kind, kind_gofs in gofs.items():
-        before = (sc.launches, payload.launches, sc.full_launches)
+        before = (sc.launches, payload.launches, sc.full_launches,
+                  pack.launches)
         dec = Decoder(Params(device=str(dev), mesh=mesh))
         dec.start_gofs(kind_gofs)
         got = [format_ply(f) for f in dec]
         launched = (sc.launches - before[0], payload.launches - before[1],
-                    sc.full_launches - before[2])
+                    sc.full_launches - before[2], pack.launches - before[3])
         plain = Decoder(Params(device="cpu"))
         plain.start_gofs(kind_gofs)
         assert got == [format_ply(f) for f in plain]
@@ -493,13 +501,51 @@ def test_prepared_gofs_on_mesh(device, data, space):
         assert fallbacks == (2 if kind == "gather" else 0)
         if device == "cuda":
             shards_x_chunks = data * space * 2  # one chunk per GOF
+            rows_x_chunks = data * 2  # K5: one card named on every row
             assert launched == {
-                "narrow": (shards_x_chunks, 0, 0),
-                "wide": (0, shards_x_chunks, shards_x_chunks),
-                "gather": (0, 0, 2),
+                "narrow": (shards_x_chunks, 0, 0, rows_x_chunks),
+                "wide": (0, shards_x_chunks, shards_x_chunks, rows_x_chunks),
+                "gather": (0, 0, 2, 0),
             }[kind]
         else:
-            assert launched == (0, 0, 0)
+            assert launched == (0, 0, 0, 0)
+
+
+@pytest.mark.parametrize("device", DEVICES)
+@pytest.mark.parametrize("data,space", [(1, 4), (2, 2)])
+def test_device_pack_on_mesh_packs_once_per_device_and_row(
+        device, data, space, monkeypatch):
+    """Prepared 128^2 narrow and wide GOFs through a ``Decoder`` on a
+    mesh of one device named ``data x space`` times: the device pack (the
+    default staging) runs once for each distinct device of each data row
+    and chunk, not once a shard (the plain version on the CPU, K5's
+    launches on the card), and the frames equal the meshless decode; the
+    frames are the same under the host pack, which packs nothing on the
+    device."""
+    dev = _device(device)
+    mesh = port_mesh.make_mesh([dev] * (data * space), data=data,
+                               space=space)
+    calls = count_plain_packs(monkeypatch)
+    for kind in ("narrow", "wide"):
+        gofs = [_prepared_gof(kind, 0), _prepared_gof(kind, 2)]
+        plain = Decoder(Params(device="cpu"))
+        plain.start_gofs(gofs)
+        want = [format_ply(f) for f in plain]
+        outs = []
+        for hostpack in (False, True):
+            del calls[:]
+            before = pack.launches
+            with (host_pack_staging() if hostpack else nullcontext()):
+                dec = Decoder(Params(device=str(dev), mesh=mesh))
+                dec.start_gofs(gofs)
+                outs.append([format_ply(f) for f in dec])
+            packs = len(calls) + pack.launches - before
+            # one distinct device a row; a GOF of two frames is one chunk
+            assert packs == (0 if hostpack else data * len(gofs)), (
+                kind, hostpack, packs)
+            assert not dec.stats.counter_totals().get(
+                "mesh_fallback_dispatches")
+        assert outs[0] == want and outs[1] == want
 
 
 @pytest.mark.cuda
@@ -519,7 +565,7 @@ def test_distinct_cards_match_cpu():
         for devs in (cards, [torch.device("cpu")] * 4):
             mesh = port_mesh.make_mesh(devs, data=data, space=space)
             ops, cnt, _ = spatial.reconstruct_gof_spatial_pretiled(
-                mesh, fields, cat, pcfg)
+                mesh, *host_cat_stager(fields, cat), pcfg)
             outs.append((cnt, _fetch_sharded_packed(ops, cnt, space, s_loc,
                                                     layout="wide")))
         np.testing.assert_array_equal(outs[0][0], outs[1][0])
@@ -543,6 +589,32 @@ def test_graft_entry_forward_on_cpu():
     _, want = R.reconstruct_batch(*gather_inputs_to_device(
         *example_batch_inputs(cfg, n_patches=8), "cpu"), cfg.frame_config())
     assert torch.equal(counts, want)
+
+
+def test_graft_entry_matches_reference_entry():
+    """``graft_entry.entry`` (raw pre-tiled planes: K5, words, K1) against
+    the root ``__graft_entry__.entry`` (``_flat_pretiled_impl`` on the
+    same raw planes): equal counts and compacted points."""
+    import jax
+
+    import __graft_entry__ as ref_graft
+    from tpu_vpcc_torch import graft_entry
+    from tpu_vpcc_torch.ops.tiled import _unpack_ops_points
+
+    fn, args = graft_entry.entry(device="cpu")
+    ops, counts = fn(*args)
+    pos, col = _unpack_ops_points(ops, "narrow")
+    ref_fn, ref_args = ref_graft.entry()
+    rpos, rcol, rcnt = map(np.asarray, jax.jit(ref_fn)(*ref_args))
+    np.testing.assert_array_equal(counts.numpy(), rcnt)
+    assert int(counts[0]) > 0
+    for f, n in enumerate(rcnt):
+        np.testing.assert_array_equal(pos[f, :n].numpy(), rpos[f, :n])
+        np.testing.assert_array_equal(col[f, :n].numpy(), rcol[f, :n])
+    # the entry's planes are the reference's, bucketed to the live groups
+    assert len(args) == len(ref_args) == 7
+    for a, b in zip(args[1:], ref_args[1:]):
+        np.testing.assert_array_equal(a.numpy().view(b.dtype), b)
 
 
 @needs_encoder

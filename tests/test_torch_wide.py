@@ -14,7 +14,10 @@ numpy:
     ``tiled.reconstruct_batch_pretiled`` + ``pipeline._fetch_prefixes``.
 
 The reference side stages host-packed, host-oriented cats
-(``TPU_VPCC_HOSTPACK=1 TPU_VPCC_HOSTORIENT=1``). Outputs are integers:
+(``TPU_VPCC_HOSTPACK=1 TPU_VPCC_HOSTORIENT=1``), except in the
+device-pack cases of the whole dispatch: there it runs its own CPU
+default on the raw block-tiled arrays, against the port's device-packed
+and host-packed dispatches. Outputs are integers:
 no tolerance, words compared bit for bit, compacted operands up to each
 frame's count. The kernels themselves are held against these plain
 versions by the ``cuda``-marked tests, on a card.
@@ -189,10 +192,11 @@ def test_k1f_wrapper_rejects_bad_inputs():
 # ---------------------------------------------------------------------------
 
 
-def _staged(case_seed, mc, maps, changes, chroma_full=False, planes=False):
-    """Staged reference arrays ``(fields, cat, None x5)`` and config for
-    two 128² frames; ``planes`` draws each live group's G_PLANE from
-    {0, 1, 2, 3} and sets ``additional_planes``."""
+def _raw(case_seed, mc, maps, changes, chroma_full=False, planes=False):
+    """The raw block-tiled reference arrays ``(fields, occ, geo0, geo1,
+    ay, au, av)`` and config for two 128² frames; ``planes`` draws each
+    live group's G_PLANE from {0, 1, 2, 3} and sets
+    ``additional_planes``."""
     frames = _frames(seed=case_seed, map_count=mc)
     tiled, cs = _tiled(frames, maps, chroma_full)
     fcfg = ref_flagship.FlagshipConfig(W, H, RES, PREC)
@@ -211,6 +215,13 @@ def _staged(case_seed, mc, maps, changes, chroma_full=False, planes=False):
         assert set(np.unique(fields[live][:, G.G_PLANE])) == {0, 1, 2, 3}
         tiled = (fields,) + tiled[1:]
         cfg_ref = replace(cfg_ref, additional_planes=True)
+    return tiled, cfg_ref
+
+
+def _staged(case_seed, mc, maps, changes, chroma_full=False, planes=False):
+    """Staged reference arrays ``(fields, cat, None x5)`` and config of
+    :func:`_raw`'s case."""
+    tiled, cfg_ref = _raw(case_seed, mc, maps, changes, chroma_full, planes)
     return ref_tiled.stage_cat_inputs(*tiled, cfg_ref)
 
 
@@ -436,6 +447,39 @@ def test_wide_dispatch_and_fetch_match_reference(case):
             not torch.equal(a[f, :n], b[f, :n])
             for a, b in zip(ops, ops0) for f, n in enumerate(counts)
         )
+
+
+@pytest.mark.parametrize("case", sorted(DISPATCH_CASES))
+def test_wide_device_pack_dispatch_matches_reference_default(case,
+                                                             monkeypatch):
+    """tpu_vpcc without the TPU's knobs (its CPU default: raw tiled
+    arrays, the pack and the orientation fix on the device), the port's
+    device-packed and host-packed wide dispatches: equal counts,
+    byte-equal compacted prefixes."""
+    from test_torch_dispatch import dispatch_both_stagings, port_cfg
+
+    monkeypatch.delenv("TPU_VPCC_HOSTPACK")
+    monkeypatch.delenv("TPU_VPCC_HOSTORIENT")
+    seed, mc, maps, changes, planes, color_mode = DISPATCH_CASES[case]
+    tiled, cfg_ref = _raw(seed, mc, maps, changes, planes=planes)
+    assert not cfg_ref.host_oriented
+    pos_t, col_t, counts = ref_tiled.reconstruct_batch_pretiled(
+        *tiled, cfg=cfg_ref
+    )
+    counts = np.asarray(counts)
+    assert counts.min() > 0
+    pos_r, col_r = ref_pipeline._fetch_prefixes(pos_t, col_t, counts,
+                                                color_mode)
+    cfg = port_cfg(cfg_ref)
+    assert not T.narrow_emit_ok(cfg)
+    outs = dispatch_both_stagings(tiled, cfg, color_mode, monkeypatch)
+    for frames in outs.values():
+        assert len(frames) == len(counts)
+        for f, (pos, col) in enumerate(frames):
+            n = counts[f]
+            assert len(pos) == n and pos.dtype == pos_r.dtype
+            np.testing.assert_array_equal(pos, pos_r[f, :n])
+            np.testing.assert_array_equal(col, col_r[f, :n])
 
 
 def test_wide_layout_is_named_not_inferred():

@@ -20,9 +20,11 @@ VERIFY_STREAM = (Path(__file__).resolve().parent.parent / "tests" / "data"
 
 def entry(device: str = "cuda"):
     """Returns ``(fn, example_args)``: the flagship's narrow dispatch on
-    staged inputs (``ops.tiled.reconstruct_batch_pretiled_packed``:
-    gather, words and K1 on a card) at 256^2, one frame, and its staged
-    ``(fields, cat)`` on ``device``. ``fn(*example_args)`` returns
+    raw pre-tiled planes (``ops.tiled.reconstruct_planes_packed``: the
+    swap mask from the fields, K5, gather, words and K1 on a card), as
+    the reference's entry feeds raw planes to ``_flat_pretiled_impl``, at
+    256^2, one frame, and its bucketed ``(fields, occ_t, geo0_t, geo1_t,
+    ay_t, au_t, av_t)`` on ``device``. ``fn(*example_args)`` returns
     ``(ops, counts)``. A CUDA device without a card raises."""
     from functools import partial
 
@@ -31,13 +33,10 @@ def entry(device: str = "cuda"):
         bucket_flagship_inputs,
         example_pretiled_batch_inputs,
     )
-    from .ops.tiled import (
-        reconstruct_batch_pretiled_packed,
-        stage_cat_inputs,
-        to_device,
-    )
+    from .ops.tiled import gather_inputs_to_device, reconstruct_planes_packed
     from .runtime.pipeline import resolve_device
 
+    dev = resolve_device(device)
     # small-but-representative shapes so the check is quick
     cfg = FlagshipConfig(
         width=256, height=256, occupancy_resolution=16, occupancy_precision=4,
@@ -45,9 +44,8 @@ def entry(device: str = "cuda"):
     )
     tiled, fcfg, _, _ = bucket_flagship_inputs(
         example_pretiled_batch_inputs(cfg, n_patches=8), cfg.frame_config())
-    (fields, cat), fcfg = stage_cat_inputs(*tiled, fcfg)
-    args = to_device(fields, cat, resolve_device(device))
-    return partial(reconstruct_batch_pretiled_packed, cfg=fcfg), args
+    args = gather_inputs_to_device(*tiled, dev)
+    return partial(reconstruct_planes_packed, cfg=fcfg), args
 
 
 def _mesh_devices(n_devices: int, device: str):
@@ -75,7 +73,8 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
     ``n_devices`` is even), the per-frame totals summed across the
     shards. ``device="cuda"`` takes the first ``n_devices`` cards;
     another device name (``"cpu"``, ``"cuda:0"``) is named ``n_devices``
-    times. Exercised: the wide path (K2W, K1F), the narrow path (K1), the
+    times. Exercised: the device pack (K5, once per distinct device of a
+    data row), the wide path (K2W, K1F), the narrow path (K1), the
     gather drivers, a smoothed step (the grids combined across the
     shards), and ``Decoder(Params(mesh=...))`` on
     ``tests/data/verify_64x64_2f.bin`` byte-equal to the oracle; raises
@@ -89,7 +88,7 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
         example_pretiled_batch_inputs,
     )
     from .ops.smoothing import AttrSmoothingConfig, SmoothingConfig
-    from .ops.tiled import stage_cat_inputs
+    from .ops.tiled import device_pack_stager, stage_plane_inputs
     from .parallel.mesh import make_mesh
     from .parallel.spatial import (
         reconstruct_gof_spatial,
@@ -111,11 +110,12 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
     fcfg = cfg.frame_config()
     s_loc = fcfg.s_cap // space
 
-    # the wide path on the staged cat, groups sharded over 'space'
-    (fields, cat), scfg = stage_cat_inputs(
+    # the wide path on the device pack's planes, groups sharded over
+    # 'space'
+    arrays, scfg = stage_plane_inputs(
         *example_pretiled_batch_inputs(cfg, n_patches=3), fcfg)
-    ops, cnt, totals = reconstruct_gof_spatial_pretiled(mesh, fields, cat,
-                                                         scfg)
+    staged = device_pack_stager(*arrays, scfg)
+    ops, cnt, totals = reconstruct_gof_spatial_pretiled(mesh, *staged, scfg)
     wide = _fetch_sharded_packed(ops, cnt, space, s_loc, layout="wide")
     total = sum(len(p) for p, _ in wide)
     assert total > 0, "dry run produced no points"
@@ -123,7 +123,7 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
 
     # the narrow path (K1 per shard): the same points
     ops_p, cnt_p, _ = reconstruct_gof_spatial_pretiled_packed(
-        mesh, fields, cat, scfg)
+        mesh, *staged, scfg)
     narrow = _fetch_sharded_packed(ops_p, cnt_p, space, s_loc)
     for (pw, cw), (pn, cn) in zip(wide, narrow):
         assert np.array_equal(pw, pn) and np.array_equal(cw, cn), (
@@ -142,7 +142,7 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
         smoothing=SmoothingConfig(8, 16, 10),
         attr_smoothing=AttrSmoothingConfig(8, 255, 1, 10),
     )
-    _, cnt_s, _ = reconstruct_gof_spatial_pretiled(mesh, fields, cat, smooth)
+    _, cnt_s, _ = reconstruct_gof_spatial_pretiled(mesh, *staged, smooth)
     assert int(cnt_s.sum()) == total, "smoothing changed the point count"
 
     # a committed bitstream through Decoder(Params(mesh=...)) against the

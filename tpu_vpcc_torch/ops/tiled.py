@@ -1,16 +1,30 @@
 """Tiled whole-frame reconstruction: the narrow and the wide path.
 
-Counterpart of ``tpu_vpcc.ops.tiled`` in its one production staging
-mode: host-packed, host-oriented "cat" inputs. Frames these paths cannot
-take (:func:`tiled_supported`, rotated orientations, samples wider than
-10 bits) go to the gather fallback, ``reconstruct.reconstruct_batch``,
-whose raster inputs cross to the device by :func:`gather_inputs_to_device`
-and whose words unpack here with the "gather" layout.
+Counterpart of ``tpu_vpcc.ops.tiled`` in its two stagings of the cat,
+the ``(F, nb, 3*res*res)`` concat of the three u32 sample planes packed
+per canvas block. Frames these paths cannot take (:func:`tiled_supported`,
+rotated orientations, samples wider than 10 bits) go to the gather
+fallback, ``reconstruct.reconstruct_batch``, whose raster inputs cross to
+the device by :func:`gather_inputs_to_device` and whose words unpack here
+with the "gather" layout.
 
-Host half (numpy): the three u32 sample planes are packed per canvas
-block and concatenated into one ``(F, nb, 3*res*res)`` cat, with
-SWAP-family blocks transposed so every tile is in patch memory order
-(:func:`stage_cat_inputs`).
+The two stagings (``runtime.pipeline._gof_device_inputs`` picks one):
+
+  - the device pack, as the reference's default off the TPU: the host
+    stacks the block-tiled planes and builds the swap mask
+    (:func:`stage_plane_inputs`); they cross to the device and kernel K5
+    (``pack.pack_cat``) packs the cat there (:func:`device_pack_stager`);
+  - the host pack, only for quantized patch extents, whose trims exist
+    only as a bit mask in a host cat: numpy (or the native bridge's C
+    pack) packs the cat on the host (:func:`stage_cat_inputs`), and it
+    crosses whole (:func:`host_cat_stager`). The port has no knob that
+    selects it for other frames.
+
+Both fold the orientation fix into the pack: SWAP-family blocks are
+written transposed, so every tile is in patch memory order and
+``cfg.host_oriented`` is set either way. The port never reads
+``TPU_VPCC_HOSTORIENT``: the reference's other mode, a cat in canvas
+order fixed after the gather, has no counterpart.
 
 Device half (PyTorch on the tensors' device), the narrow path
 (:func:`reconstruct_batch_pretiled_packed`, when :func:`narrow_emit_ok`):
@@ -228,20 +242,98 @@ def stage_cat_inputs(fields, occ_t, geo0_t, geo1_t, ay_t, au_t, av_t, cfg,
     return (fields, cat), cfg
 
 
+def stage_plane_inputs(fields, occ_t, geo0_t, geo1_t, ay_t, au_t, av_t, cfg):
+    """Host staging for the device pack: the block-tiled planes as they
+    are and the (F, nb) swap mask of SWAP-family owned blocks, no pack.
+    Returns ``((fields, occ, geo0, geo1, ay, au, av, swap), cfg)`` with
+    ``cfg.host_oriented`` set: K5 writes the flagged blocks transposed."""
+    swap = swap_mask_host(fields, occ_t.shape[1])
+    cfg = replace(cfg, host_oriented=True)
+    return (fields, occ_t, geo0_t, geo1_t, ay_t, au_t, av_t, swap), cfg
+
+
+def _check_blockid(fields, nb: int, what: str) -> None:
+    """Every group's ``G_BLOCKID`` must name one of ``nb`` blocks: the
+    CUDA kernels read rows by it unchecked."""
+    blk = fields[..., G.G_BLOCKID]
+    if blk.size and (blk.min() < 0 or blk.max() >= nb):
+        raise ValueError(
+            f"G_BLOCKID outside the {what}'s {nb} blocks "
+            f"({blk.min()}..{blk.max()})"
+        )
+
+
 def host_tensors(fields, cat):
     """Host staging arrays -> CPU tensors sharing their memory where the
     arrays are contiguous (cat as int32 bit patterns). Every group's
-    ``G_BLOCKID`` must name a cat row: the CUDA kernels read rows by it
-    unchecked."""
+    ``G_BLOCKID`` must name a cat row."""
     fields = np.ascontiguousarray(fields, dtype=np.int32)
     cat = np.ascontiguousarray(cat, dtype=np.uint32).view(np.int32)
-    blk = fields[..., G.G_BLOCKID]
-    if blk.size and (blk.min() < 0 or blk.max() >= cat.shape[1]):
-        raise ValueError(
-            f"G_BLOCKID outside the cat's {cat.shape[1]} blocks "
-            f"({blk.min()}..{blk.max()})"
-        )
+    _check_blockid(fields, cat.shape[1], "cat")
     return torch.from_numpy(fields), torch.from_numpy(cat)
+
+
+def plane_tensors(fields, occ, geo0, geo1, ay, au, av, swap):
+    """The device pack's staging arrays -> CPU tensors sharing their
+    memory where the arrays are contiguous: the gather's dtypes
+    (:func:`gather_inputs_to_device`) and ``swap`` uint8. Every group's
+    ``G_BLOCKID`` must name one of the planes' blocks."""
+    _check_blockid(np.asarray(fields), occ.shape[1], "planes")
+    return (
+        *gather_inputs_to_device(fields, occ, geo0, geo1, ay, au, av, "cpu"),
+        torch.from_numpy(np.ascontiguousarray(swap, dtype=np.uint8)),
+    )
+
+
+def planes_to_device(fields, occ, geo0, geo1, ay, au, av, swap, device):
+    """The device pack's H2D: its staging arrays -> tensors on
+    ``device`` (:func:`plane_tensors`)."""
+    return tuple(t.to(device) for t in plane_tensors(
+        fields, occ, geo0, geo1, ay, au, av, swap))
+
+
+def host_cat_stager(fields, cat):
+    """The host pack's staging arrays -> ``(fields, put_cat)``: ``fields``
+    a CPU tensor, ``put_cat(frames, device)`` the cat of ``frames`` (an
+    index of the frame axis) crossing to ``device``."""
+    fields, cat = host_tensors(fields, cat)
+    return fields, lambda frames, device: cat[frames].to(device)
+
+
+def device_pack_stager(fields, occ, geo0, geo1, ay, au, av, swap, cfg):
+    """The device pack's staging arrays -> ``(fields, put_cat)`` as
+    :func:`host_cat_stager` gives them: ``put_cat(frames, device)``
+    sends the planes and swap mask of ``frames`` to ``device``, where K5
+    packs their cat (``pack.pack_cat``)."""
+    from .pack import pack_cat
+
+    fields, *planes = plane_tensors(fields, occ, geo0, geo1, ay, au, av,
+                                    swap)
+    return fields, lambda frames, device: pack_cat(
+        *(t[frames].to(device) for t in planes), cfg)
+
+
+def device_pack_inputs(fields, occ, geo0, geo1, ay, au, av, swap, device,
+                       cfg):
+    """The device pack's staging arrays -> ``(fields, cat)`` on
+    ``device``: the planes cross, then K5 packs the cat there
+    (:func:`device_pack_stager`)."""
+    fields, put_cat = device_pack_stager(fields, occ, geo0, geo1, ay, au,
+                                         av, swap, cfg)
+    return fields.to(device), put_cat(slice(None), device)
+
+
+def swap_mask_device(fields, nb: int):
+    """:func:`swap_mask_host` on the device: (F, nb) uint8 from the
+    fields tensor, one scatter (a padding row, G_VALID 0, adds no 1)."""
+    F = fields.shape[0]
+    sel = ((fields[:, :, G.G_SWAP] == 1)
+           & (fields[:, :, G.G_VALID] > 0)).to(torch.int32)
+    frame = torch.arange(F, device=fields.device)[:, None] * nb
+    idx = (frame + fields[:, :, G.G_BLOCKID]).reshape(-1)
+    mask = torch.zeros(F * nb, dtype=torch.int32, device=fields.device)
+    mask.scatter_reduce_(0, idx, sel.reshape(-1), "amax")
+    return mask.to(torch.uint8).reshape(F, nb)
 
 
 def to_device(fields, cat, device):
@@ -272,11 +364,16 @@ def inputs_from_reference(cfg_ref, arrays, device="cpu"):
     """Carry the JAX package's staged dispatch across: its
     ``FrameConfig`` and ``DeviceInputs.arrays`` become this port's
     ``FrameConfig`` and device tensors. Cat-mode arrays ``(fields, cat,
-    None x5)`` give ``(cfg, fields, cat)``; the gather dispatch's seven
-    raster arrays ``(fields, occ, geo0, geo1, ay, au, av)`` give ``(cfg,
-    *seven tensors)`` (:func:`gather_inputs_to_device`). Fields are read
-    by name; the reference's TPU compaction policy fields have no
-    counterpart and are dropped."""
+    None x5)`` give ``(cfg, fields, cat)``. Seven arrays ``(fields, occ,
+    geo0, geo1, ay, au, av)`` are read by their layout: block-tiled ones
+    (``geo0`` of shape (F, nb, t, t), the reference's default off the
+    TPU) are packed on ``device`` as the port's device pack packs them
+    (swap mask, :func:`device_pack_inputs`) and give ``(cfg, fields,
+    cat)`` with ``cfg.host_oriented`` set; the gather dispatch's raster
+    ones (``geo0`` (F, H, W)) give ``(cfg, *seven tensors)``
+    (:func:`gather_inputs_to_device`). Fields are read by name; the
+    reference's TPU compaction policy fields have no counterpart and are
+    dropped."""
     if getattr(cfg_ref, "cell_groups", False) or getattr(
         cfg_ref, "raw_gather", False
     ):
@@ -286,11 +383,14 @@ def inputs_from_reference(cfg_ref, arrays, device="cpu"):
         for f in dataclasses.fields(FrameConfig)
     })
     if len(arrays) == 7 and all(a is not None for a in arrays):
-        return (cfg, *gather_inputs_to_device(
-            *(np.asarray(a) for a in arrays), device))
+        arrays = [np.asarray(a) for a in arrays]
+        if arrays[2].ndim == 4:  # block-tiled planes
+            staged, cfg = stage_plane_inputs(*arrays, cfg)
+            return (cfg, *device_pack_inputs(*staged, device, cfg))
+        return (cfg, *gather_inputs_to_device(*arrays, device))
     if any(a is not None for a in arrays[2:]):
         raise ValueError("expected cat-mode arrays (fields, cat, None x5) "
-                         "or the gather dispatch's seven arrays")
+                         "or seven raw arrays")
     fields, cat = to_device(np.asarray(arrays[0]), np.asarray(arrays[1]),
                             device)
     return cfg, fields, cat
@@ -443,6 +543,20 @@ def reconstruct_batch_pretiled_packed(fields, cat, cfg):
     t_a, t_b, t_c = _gather_tiles(fields, cat, cfg)
     w0, zs, wc, valid = _tiles_to_words(fields, t_a, t_b, t_c, cfg)
     return shift_compact_ops(w0, zs, wc, valid)
+
+
+def reconstruct_planes_packed(fields, occ, geo0, geo1, ay, au, av, cfg):
+    """The narrow dispatch on raw block-tiled planes already on the
+    device, as ``tpu_vpcc``'s ``_flat_pretiled_impl(..., _packed_out=True)``
+    takes them: the swap mask from the fields (:func:`swap_mask_device`),
+    K5 (``pack.pack_cat``), then :func:`reconstruct_batch_pretiled_packed`.
+    Tensors as :func:`planes_to_device` gives them, without the mask."""
+    from .pack import pack_cat
+
+    cfg = replace(cfg, host_oriented=True)
+    swap = swap_mask_device(fields, occ.shape[1])
+    cat = pack_cat(occ, geo0, geo1, ay, au, av, swap, cfg)
+    return reconstruct_batch_pretiled_packed(fields, cat, cfg)
 
 
 def _lo16(w):

@@ -5,7 +5,8 @@ Decodes several V3C bitstreams concurrently: the host stages (V3C parse +
 HEVC sub-stream decode) run in a thread pool, one worker per stream, and
 frames from all streams are reconstructed in shared device dispatches:
 GOFs whose :class:`~tpu_vpcc_torch.runtime.pipeline.DeviceInputs` share a
-batch key (staged ``FrameConfig``, layout, colour mode, group extent) are
+batch key (staged ``FrameConfig``, layout, colour mode, group extent,
+and whether the cat is packed on the device or the host) are
 concatenated along the frame axis and dispatched together, in chunks of
 ``pipeline.DEVICE_BATCH`` frames, through the same kernels as the
 single-stream ``Decoder``. With a ``mesh``, each shared batch is chunked
@@ -60,7 +61,8 @@ class _StreamState:
 
 def _concat_inputs(dis: List[DeviceInputs]) -> DeviceInputs:
     """Merge same-key DeviceInputs along the frame axis (one dispatch):
-    the tiled layout's (fields, cat) or the gather's seven arrays."""
+    the device pack's fields, seven planes and swap mask, the host
+    pack's (fields, cat), or the gather's seven arrays."""
     if len(dis) == 1:
         return dis[0]
     return replace(

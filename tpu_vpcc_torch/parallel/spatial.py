@@ -11,13 +11,14 @@ frame's points are its shards' compacted prefixes one after another
 (:func:`stitch_spatial`, or the pipeline's sharded fetch).
 
 Each data row's frames go to the row's devices once per distinct device
-(the cat, or the raster planes); each shard then runs the port's
-kernels on its device: K1 on the narrow path, K2W, smoothing and K1F on
-the wide path, the gather slot math and K1F on the gather drivers. All
-shards are launched before any count is read back, so shards on
-distinct cards overlap. The reference's ``psum`` over 'space' of the
-counts becomes their sum on the host (``totals``), and its smoothing
-collectives ``ops.smoothing.combine_stats``.
+(the host-packed cat, the device pack's planes, which K5 packs into the
+cat once on each such device, or the raster planes); each shard then
+runs the port's kernels on its device: K1 on the narrow path, K2W,
+smoothing and K1F on the wide path, the gather slot math and K1F on the
+gather drivers. All shards are launched before any count is read back,
+so shards on distinct cards overlap. The reference's ``psum`` over
+'space' of the counts becomes their sum on the host (``totals``), and
+its smoothing collectives ``ops.smoothing.combine_stats``.
 """
 
 from __future__ import annotations
@@ -60,13 +61,13 @@ def _read_counts(counts_rows):
     return counts, counts.sum(axis=1, keepdims=True, dtype=np.int32)
 
 
-def _stage_rows(mesh: Mesh, fields, cat):
+def _stage_rows(mesh: Mesh, f_all, put_cat):
     """Per data row, per shard: ``(fields, cat)`` tensors on the shard's
-    device. The cat of the row's frames crosses once to each distinct
-    device of the row; each shard gets its own group rows."""
-    from ..ops.tiled import host_tensors
-
-    f_all, c_all = host_tensors(fields, cat)
+    device, from a tiled dispatch's staging (``f_all`` a CPU tensor and
+    ``put_cat``, see ``ops.tiled.host_cat_stager``). The cat of the row's
+    frames is put once on each distinct device of the row (where K5
+    packs it under the device pack); that device's shards share it, each
+    with its own group rows."""
     f_row = _frames_per_row(mesh, f_all.shape[0])
     g_loc = _group_shard(mesh, f_all)
     rows = []
@@ -76,7 +77,7 @@ def _stage_rows(mesh: Mesh, fields, cat):
         row = []
         for d, dev in enumerate(mesh.devices[r]):
             if dev not in cats:
-                cats[dev] = c_all[frames].to(dev)
+                cats[dev] = put_cat(frames, dev)
             groups = f_all[frames, d * g_loc:(d + 1) * g_loc].contiguous()
             row.append((groups.to(dev), cats[dev]))
         rows.append(row)
@@ -150,7 +151,7 @@ def reconstruct_gof_spatial(
     return positions, colors16, counts, totals
 
 
-def reconstruct_gof_spatial_pretiled(mesh: Mesh, fields, cat,
+def reconstruct_gof_spatial_pretiled(mesh: Mesh, fields, put_cat,
                                      cfg: FrameConfig):
     """2D-sharded reconstruction on the wide path (smoothing, 45-degree
     views): frames over 'data', the group axis of the field table over
@@ -161,8 +162,10 @@ def reconstruct_gof_spatial_pretiled(mesh: Mesh, fields, cat,
     row's shards (``ops.smoothing.combine_stats``, the reference's
     ``psum``/``pmin``/``pmax`` over 'space') before any shard applies
     them, so each shard smooths against whole-frame statistics; then K1F
-    on every shard. Host arrays in (the staged ``(fields, cat)``); F
-    must divide by 'data' and the group axis by 'space'. Returns
+    on every shard. Takes a tiled dispatch's staging, ``fields`` a CPU
+    tensor and ``put_cat(frames, device)`` (``ops.tiled.host_cat_stager``
+    or ``device_pack_stager``); F must divide by 'data' and the group
+    axis by 'space'. Returns
     ``(ops, counts (F, n_space), totals (F, 1))``: ``ops[r][d]`` shard
     d's compacted wide words of data row r's frames, each (F/data,
     s_loc) on the shard's device (``s_loc = G * 2 res² / n_space``),
@@ -174,7 +177,7 @@ def reconstruct_gof_spatial_pretiled(mesh: Mesh, fields, cat,
     from ..ops.tiled import reconstruct_batch_pretiled_shards
 
     ops, counts_rows = [], []
-    for r, shards in enumerate(_stage_rows(mesh, fields, cat)):
+    for r, shards in enumerate(_stage_rows(mesh, fields, put_cat)):
         devs = list(mesh.devices[r])
         out = reconstruct_batch_pretiled_shards(
             shards, cfg, combine=lambda stats: combine_stats(stats, devs)
@@ -184,7 +187,7 @@ def reconstruct_gof_spatial_pretiled(mesh: Mesh, fields, cat,
     return (ops, *_read_counts(counts_rows))
 
 
-def reconstruct_gof_spatial_pretiled_packed(mesh: Mesh, fields, cat,
+def reconstruct_gof_spatial_pretiled_packed(mesh: Mesh, fields, put_cat,
                                             cfg: FrameConfig):
     """The narrow twin of :func:`reconstruct_gof_spatial_pretiled` (the
     caller gates on ``ops.tiled.narrow_emit_ok``, the same predicate as
@@ -200,7 +203,7 @@ def reconstruct_gof_spatial_pretiled_packed(mesh: Mesh, fields, cat,
         raise ValueError("packed sharded dispatch requires the narrow path")
     launched = [
         [reconstruct_batch_pretiled_packed(f, c, cfg) for f, c in shards]
-        for shards in _stage_rows(mesh, fields, cat)
+        for shards in _stage_rows(mesh, fields, put_cat)
     ]
     return ([[o for o, _ in row] for row in launched],
             *_read_counts([[c for _, c in row] for row in launched]))

@@ -7,12 +7,16 @@ iteration, one background decode thread and a bounded queue.
 Per GOF:
   1. host: demux V3C units into a fresh Context, build patch frames;
   2. host: decode the HEVC sub-streams (native libavcodec bridge);
-  3. host: group tables, then the staging: the packed, host-oriented
-     cat (``ops.tiled.stage_cat_inputs``), or, for frames the tiled
-     paths cannot take (rotated orientations, samples wider than 10
-     bits, ``ops.tiled.tiled_supported`` false), the raster planes;
-  4. device (``Params.device``, or the shards of ``Params.mesh``),
-     routed as the reference routes, on ``DeviceInputs.use_tiled`` and
+  3. host: group tables, then the staging: for the tiled paths the
+     block-tiled planes and a swap mask (``ops.tiled.stage_plane_inputs``)
+     or, for quantized patch extents, the packed, host-oriented cat
+     (``ops.tiled.stage_cat_inputs``); for frames the tiled paths cannot
+     take (rotated orientations, samples wider than 10 bits,
+     ``ops.tiled.tiled_supported`` false), the raster planes;
+  4. device (``Params.device``, or the shards of ``Params.mesh``): the
+     staged arrays cross, K5 packs the cat from the planes
+     (``ops.pack.pack_cat``) where the host did not, and the dispatch is
+     routed as the reference routes, on ``DeviceInputs.staging`` and
      then ``ops.tiled.narrow_emit_ok``:
      - the narrow path: cat-row gather, narrow words stage and the K1
        compaction (``ops.tiled.reconstruct_batch_pretiled_packed``);
@@ -1032,13 +1036,21 @@ DEVICE_BATCH = 2
 @dataclass
 class DeviceInputs:
     """Host-staged arrays for one device dispatch, each with a leading
-    frame axis. When ``use_tiled``: ``arrays`` = (fields (F, G,
-    N_GROUP_FIELDS) int32, cat (F, nb, 3*res*res) u32); otherwise the
-    gather fallback's (fields, occ, geo0, geo1, attr_y, attr_u, attr_v)
-    in canvas layout."""
+    frame axis, laid out as ``staging`` says:
+
+      - ``"device_pack"``, a tiled dispatch: (fields (F, G,
+        N_GROUP_FIELDS) int32, occ, geo0, geo1, attr_y, attr_u, attr_v
+        block-tiled, swap (F, nb) u8), which K5 packs into the cat on
+        the device;
+      - ``"host_pack"``, a tiled dispatch of quantized extents: (fields,
+        cat (F, nb, 3*res*res) u32), packed on the host;
+      - ``"gather"``: the gather fallback's (fields, occ, geo0, geo1,
+        attr_y, attr_u, attr_v) in canvas layout.
+
+    Only :meth:`on_device` and :meth:`cat_stager` read the layout."""
 
     cfg: object  # ops.reconstruct.FrameConfig
-    use_tiled: bool
+    staging: str
     arrays: tuple
     n_frames: int
     # 'yuv10' (exact integer BT.709 -> u8), 'rgb16' (u16 -> u8
@@ -1047,20 +1059,51 @@ class DeviceInputs:
     color_mode: str = "raw"
 
     @property
+    def use_tiled(self) -> bool:
+        """A tiled dispatch (narrow or wide path), not the gather."""
+        return self.staging != "gather"
+
+    @property
     def group_cap(self) -> int:
         """Device group-axis extent: the field table's (bucketed, see
         ``atlas.groups.bucket_group_count``) group count. The fields
-        come first in both layouts."""
+        come first in every layout."""
         return self.arrays[0].shape[1]
 
     @property
     def batch_key(self):
         """Inputs with equal keys concatenate along the frame axis into
         one dispatch (``parallel.batcher``). ``cfg`` is the staged one
-        (``stage_cat_inputs`` may replace it); group_cap is part of the
+        (the staging sets ``host_oriented``); group_cap is part of the
         key: inputs bucketed to different group extents cannot share a
-        dispatch."""
-        return (self.cfg, self.use_tiled, self.color_mode, self.group_cap)
+        dispatch; so is the staging: a host cat and the planes never
+        merge."""
+        return (self.cfg, self.staging, self.color_mode, self.group_cap)
+
+    def cat_stager(self):
+        """A tiled dispatch's ``(fields, put_cat)``: ``fields`` a CPU
+        tensor, ``put_cat(frames, device)`` the cat of ``frames`` on
+        ``device``, packed there by K5 from the planes or crossing from
+        the host (``ops.tiled.device_pack_stager``,
+        ``ops.tiled.host_cat_stager``)."""
+        from ..ops.tiled import device_pack_stager, host_cat_stager
+
+        if self.staging == "device_pack":
+            return device_pack_stager(*self.arrays, self.cfg)
+        if self.staging == "host_pack":
+            return host_cat_stager(*self.arrays)
+        raise ValueError(f"a {self.staging!r} dispatch has no cat")
+
+    def on_device(self, device):
+        """The dispatch's tensors on ``device``: ``(fields, cat)`` for a
+        tiled dispatch (:meth:`cat_stager`), the gather's seven tensors
+        otherwise (``ops.tiled.gather_inputs_to_device``)."""
+        from ..ops.tiled import gather_inputs_to_device
+
+        if not self.use_tiled:
+            return gather_inputs_to_device(*self.arrays, device)
+        fields, put_cat = self.cat_stager()
+        return fields.to(device), put_cat(slice(None), device)
 
 
 def _st(stats, name: str):
@@ -1132,11 +1175,16 @@ def _gof_tables_and_bucket(gof: GofData, space: int = 1):
 def _gof_device_inputs(gof: GofData, metas, prebuilt, g_bucket: int) -> DeviceInputs:
     """Stage the dispatch inputs for (a chunk of) a GOF's frames: group
     tables bucketed to ``g_bucket`` rows (live groups first, in emission
-    order; padding rows have G_VALID=0) and the packed, host-oriented
-    cat, or for the gather fallback the planes in canvas layout."""
+    order; padding rows have G_VALID=0) and, as the reference's rule
+    off the TPU (``tpu_vpcc/runtime/pipeline.py:1941``) picks, the
+    block-tiled planes with a swap mask for the device pack, or the
+    packed, host-oriented cat when the frames carry quantized extents
+    (trims exist only as a bit mask in a host cat); for the gather
+    fallback the planes in canvas layout."""
     from ..atlas.groups import N_GROUP_FIELDS
     from ..ops.tiled import (
         stage_cat_inputs,
+        stage_plane_inputs,
         tile_plane,
         tiled_supported,
         untile_plane,
@@ -1222,16 +1270,22 @@ def _gof_device_inputs(gof: GofData, metas, prebuilt, g_bucket: int) -> DeviceIn
     au = attr_stack(1, cfg.chroma_shift)
     av = attr_stack(2, cfg.chroma_shift)
     occ = np.stack([gof.occ_planes[m.frame_index] for m in metas])
-    if use_tiled:
+    if not use_tiled:
+        staging, arrays = "gather", (fields, occ, geo0, geo1, ay, au, av)
+    elif trims is None:
+        staging = "device_pack"
+        arrays, cfg = stage_plane_inputs(
+            fields, tile_plane(occ, kt // cfg.occupancy_precision),
+            geo0, geo1, ay, au, av, cfg)
+    else:
+        staging = "host_pack"
         arrays, cfg = stage_cat_inputs(
             fields, tile_plane(occ, kt // cfg.occupancy_precision),
             geo0, geo1, ay, au, av, cfg, trims=trims,
         )
-    else:
-        arrays = (fields, occ, geo0, geo1, ay, au, av)
     return DeviceInputs(
         cfg=cfg,
-        use_tiled=use_tiled,
+        staging=staging,
         arrays=arrays,
         n_frames=len(metas),
         color_mode=_gof_color_mode(gof),
@@ -1344,7 +1398,8 @@ def _dispatch_sharded(di: DeviceInputs, mesh, stats=None):
     )
 
     n_space = mesh.shape["space"]
-    arrays = [pad_batch(a, mesh.shape["data"]) for a in di.arrays]
+    padded = replace(di, arrays=tuple(pad_batch(a, mesh.shape["data"])
+                                      for a in di.arrays))
     s_loc = di.group_cap // n_space * di.cfg.slots_per_block
     # one predicate for sharded and unsharded dispatches: K1 has no sort
     # key, so the reference's shard-extent bound has no counterpart
@@ -1353,7 +1408,7 @@ def _dispatch_sharded(di: DeviceInputs, mesh, stats=None):
     else:
         layout, dispatch = "wide", reconstruct_gof_spatial_pretiled
     with _st(stats, "recon_dispatch"):
-        ops, counts, _ = dispatch(mesh, *arrays, di.cfg)
+        ops, counts, _ = dispatch(mesh, *padded.cat_stager(), di.cfg)
     with _st(stats, "recon_fetch"):
         return _fetch_sharded_packed(
             ops, counts, n_space, s_loc, color_mode=di.color_mode,
@@ -1364,17 +1419,16 @@ def _dispatch_sharded(di: DeviceInputs, mesh, stats=None):
 def _dispatch_device(di: DeviceInputs, device, stats=None, mesh=None):
     """Run one device dispatch: the gather fallback unless
     ``di.use_tiled``, else the narrow path or, for smoothing and
-    45-degree views, the wide one; with a ``mesh``, tiled dispatches of
-    up to ``DEVICE_BATCH x data`` frames shard over it. Returns a
-    per-frame list of host (positions (n,3) u16, colors (n,3)) in
-    emission order."""
+    45-degree views, the wide one, on the cat that K5 packs on the
+    device from the staged planes or that crosses from the host
+    (``di.staging``); with a ``mesh``, tiled dispatches of up to
+    ``DEVICE_BATCH x data`` frames shard over it. Returns a per-frame
+    list of host (positions (n,3) u16, colors (n,3)) in emission order."""
     from ..ops.reconstruct import reconstruct_batch
     from ..ops.tiled import (
-        gather_inputs_to_device,
         narrow_emit_ok,
         reconstruct_batch_pretiled,
         reconstruct_batch_pretiled_packed,
-        to_device,
     )
 
     chunk = DEVICE_BATCH * (mesh.shape["data"] if mesh is not None else 1)
@@ -1412,17 +1466,13 @@ def _dispatch_device(di: DeviceInputs, device, stats=None, mesh=None):
         # back to DEVICE_BATCH chunks on the single device
         return _dispatch_device(di, device, stats=stats)
     if not di.use_tiled:
-        layout, put, dispatch = (
-            "gather", gather_inputs_to_device, reconstruct_batch
-        )
+        layout, dispatch = "gather", reconstruct_batch
     elif narrow_emit_ok(di.cfg):
-        layout, put, dispatch = (
-            "narrow", to_device, reconstruct_batch_pretiled_packed
-        )
+        layout, dispatch = "narrow", reconstruct_batch_pretiled_packed
     else:
-        layout, put, dispatch = "wide", to_device, reconstruct_batch_pretiled
+        layout, dispatch = "wide", reconstruct_batch_pretiled
     with _st(stats, "recon_dispatch"):
-        ops, counts = dispatch(*put(*di.arrays, device), di.cfg)
+        ops, counts = dispatch(*di.on_device(device), di.cfg)
         counts = counts.cpu().numpy()  # device sync
     with _st(stats, "recon_fetch"):
         pos_all, col_all = _fetch_prefixes_packed(

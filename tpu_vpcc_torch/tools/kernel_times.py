@@ -2,10 +2,11 @@
 version, one PyTorch call that computes the same function where there is
 one, and the kernel's bound.
 
-The helpers (:func:`measure` and what it is built from) are what
-``chip_smoke.py`` times every kernel with. As a command this module times
-the probe kernels P1-P12 (``ops/probes.py``) at about 64 MiB per operand,
-after checking each against its plain version and the probe's ``want``:
+The helpers (:func:`measure` and what it is built from, and K5's
+:func:`time_pack`) are what ``chip_smoke.py`` times every kernel with.
+As a command this module times the probe kernels P1-P12
+(``ops/probes.py``) at about 64 MiB per operand, after checking each
+against its plain version and the probe's ``want``:
 
     python -m tpu_vpcc_torch.tools.kernel_times [--probes P10,P11] [--repeats 3]
 
@@ -382,6 +383,37 @@ def library_call(case):
     if p == "P11":
         return lambda: torch.flip(a[0], (1,))
     return None
+
+
+# ---------------------------------------------------------------------------
+# K5, the device pack
+# ---------------------------------------------------------------------------
+
+#: why no one PyTorch call computes K5's function
+PACK_NO_LIBRARY = ("none: no one call packs three planes with a nearest "
+                   "upsample and a per-block transpose")
+
+
+def pack_bytes(occ, geo0, geo1, ay, au, av, swap, cfg) -> int:
+    """The bytes K5 must move on these planes: each plane it reads once
+    (``geo1`` and map 1 only with two maps) and the swap mask, and the
+    cat written once."""
+    maps = 2 if cfg.map_count > 1 else 1
+    read = (_nb(occ) + maps * _nb(geo0) + _nb(swap)
+            + maps * (_nb(ay[:, 0]) + _nb(au[:, 0]) + _nb(av[:, 0])))
+    res = cfg.occupancy_resolution
+    return read + occ.shape[0] * occ.shape[1] * 3 * res * res * 4
+
+
+def time_pack(planes, cfg) -> dict:
+    """K5 on ``planes`` (``(occ, geo0, geo1, ay, au, av, swap)`` on the
+    card) by :func:`measure`, beside ``pack_cat_plain``; no library
+    call (:data:`PACK_NO_LIBRARY`)."""
+    from ..ops import pack
+
+    return measure(lambda: pack._pack_cat_cuda(*planes, cfg),
+                   lambda: pack.pack_cat_plain(*planes, cfg),
+                   nbytes=pack_bytes(*planes, cfg))
 
 
 #: probes whose cases compare only part of the output (P8 each segment's
