@@ -25,14 +25,19 @@ failure:
   2b. K1F against its plain version: densities 0, 0.3, 0.7 and 1, F = 1,
      2 and 3, at the same edge extents in slots. Counts equal, prefixes
      byte-equal, two calls byte-equal;
-  2c. K5, the device pack, against its plain version: the first flagship
+  2c. K5, the device pack, against its plain version: its ``-Xptxas -v``
+     registers and shared memory per instantiation; the first flagship
      GOF's own block-tiled planes and swap mask, the CPU test's grid
      (``ops.pack.CHECK_GRID``: one and two maps, chroma shift 0 and 1,
      five block edges and occupancy precisions, F = 1 and 3, swap
      densities 0, 0.3 and 1, on random samples over the full 10-bit
-     range), one block of one frame, and 324 words (no multiple of the
-     kernel's 256-thread block); each case twice, the whole cat
-     byte-equal; then K5's times (below) at the flagship GOF;
+     range; then ``CHECK_PATHS``, the kernel's other paths: other and
+     odd edges, prec = res, two maps' planes with one read, block counts
+     no multiple of a CTA's), one block of one frame, 324 words (no
+     multiple of a 256-thread CTA), and frames 1-2 of a three-frame input
+     (every plane past frame 0, the swap mask on an odd byte); each case
+     twice, the whole cat byte-equal; then K5's times (below) at the
+     flagship GOF and at the batcher's 12-frame narrow merged input;
   3. the flagship main path on the card: two GOFs of two synthetic
      1280^2 frames each through ``Decoder.start_gofs`` with both GOFs in
      flight (group tables, staging of the block-tiled planes, K5 packing
@@ -474,74 +479,98 @@ def _k5_case(planes, cfg, what) -> int:
     return err
 
 
-def _k5_planes(mc, cs, res, prec, F, density, nb, gen):
-    """Random planes on the card as ``ops.tiled.planes_to_device`` gives
-    them: occupancy over 0-255, samples over the full 10-bit range, a
-    swap mask of ``density``."""
-    import torch
+def k5_ptxas_lines(log: str):
+    """K5's ``-Xptxas -v`` report, a line per kernel instantiation: its
+    block edge (0: the generic one), registers, static shared memory and
+    spills (ptxas reports an entry's spills before its registers)."""
+    import re
 
-    dev = torch.device("cuda")
-    rp, rc = res // prec, res >> cs
-
-    def u10(*shape):
-        return torch.randint(0, 1024, shape, dtype=torch.int16, device=dev,
-                             generator=gen)
-
-    occ = torch.randint(0, 256, (F, nb, rp, rp), dtype=torch.uint8,
-                        device=dev, generator=gen)
-    swap = (torch.rand((F, nb), device=dev, generator=gen)
-            < density).to(torch.uint8)
-    return (occ, u10(F, nb, res, res), u10(F, nb, res, res),
-            u10(F, mc, nb, res, res), u10(F, mc, nb, rc, rc),
-            u10(F, mc, nb, rc, rc), swap)
+    out, name, spills = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            args = re.findall(r"ILi(\d+)E", m.group(1))
+            name, spills = f"pack_tiles_kernel<{', '.join(args)}>", ""
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name and not spills:
+            spills = f"spills {m.group(1)} / {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {m.group(2)} B "
+                       f"static shared memory, {spills or 'no spill line'}")
+            name = None
+    return out
 
 
 def phase_k5(gof):
     """Phase 2c: K5 against its plain version on the card (see the module
-    note), then its times at the first flagship GOF's planes. Returns
-    K5's kernels entry without its launches (phase 3 counts them)."""
+    note), then its times at the first flagship GOF's planes and at the
+    batcher's 12-frame narrow merged input. Returns K5's kernels entry
+    (the flagship GOF's) without its launches (phase 3 counts them)."""
     import torch
 
-    from tpu_vpcc_torch.ops import pack
-    from tpu_vpcc_torch.ops.reconstruct import make_config
+    from tpu_vpcc_torch.ops import _build, pack
     from tpu_vpcc_torch.ops.tiled import planes_to_device
+    from tpu_vpcc_torch.parallel import batcher as B
     from tpu_vpcc_torch.runtime import pipeline as P
     from tpu_vpcc_torch.tools.kernel_times import (
         PACK_NO_LIBRARY,
         measured_line,
         nvidia_smi_line,
         pack_bytes,
+        pack_config,
+        seeded_planes,
         time_pack,
     )
 
     t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    ptxas = k5_ptxas_lines(_build.build_logs.get("pack_planes", ""))
+    for line in ptxas or ["no -Xptxas -v report: the library was built by "
+                          "an earlier process"]:
+        print(f"K5 ptxas: {line}")
     cfg, tables, g_bucket = P._gof_tables_and_bucket(gof)
     di = P._gof_device_inputs(gof, gof.metas, (cfg, tables), g_bucket)
     check(di.staging == "device_pack",
           f"the flagship GOF is staged as {di.staging!r}")
-    _, *planes = planes_to_device(*di.arrays, torch.device("cuda"))
+    dev = torch.device("cuda")
+    _, *planes = planes_to_device(*di.arrays, dev)
     err = _k5_case(planes, di.cfg, "flagship GOF")
     F, nb = planes[0].shape[:2]
     print(f"K5 vs plain, the first flagship GOF's planes: F={F} nb={nb} "
           f"res={di.cfg.occupancy_resolution}, {int(planes[-1].sum())} "
           f"blocks transposed: whole cats equal, two calls byte-equal")
     gen = torch.Generator(device="cuda").manual_seed(55)
-    cases = {f"grid {g}": g + (5,) for g in pack.CHECK_GRID}
-    cases["one block of one frame"] = (2, 1, 16, 4, 1, 1.0, 1)
-    cases["324 words, no multiple of the 256-thread block"] = (
-        1, 1, 6, 3, 1, 0.5, 3)
-    for what, (mc, cs, res, prec, F_, density, nb_) in cases.items():
-        c = make_config(width=res * nb_, height=res, occupancy_resolution=res,
-                        occupancy_precision=prec, map_count=mc,
-                        chroma_shift=cs)
+    cases = {f"grid {g}": g for g in pack.CHECK_GRID}
+    cases["one block of one frame"] = (2, 1, 16, 4, 1, 1.0, 2, 1)
+    cases["324 words, no multiple of a 256-thread CTA"] = (
+        1, 1, 6, 3, 1, 0.5, 1, 3)
+    for what, (mc, cs, res, prec, F_, density, M, nb_) in cases.items():
+        c = pack_config(mc, cs, res, prec, nb_)
         err = max(err, _k5_case(
-            _k5_planes(mc, cs, res, prec, F_, density, nb_, gen), c, what))
+            seeded_planes(mc, cs, res, prec, F_, density, nb_, gen, M), c,
+            what))
+    # frames 1-2 of three, nb odd: every plane starts past frame 0, the
+    # swap mask on an odd byte
+    c = pack_config(2, 1, 16, 4, 7)
+    whole = seeded_planes(2, 1, 16, 4, 3, 0.3, 7, gen)
+    sliced = [t[1:] for t in whole]
+    check(sliced[-1].data_ptr() % 2 == 1, "the sliced swap mask is aligned")
+    err = max(err, _k5_case(sliced, c, "frames 1-2 of 3, nb 7"))
+    check(torch.equal(pack.pack_cat(*sliced, c),
+                      pack.pack_cat_plain(*whole, c)[1:]),
+          "K5 on frames 1-2 differs from frames 1-2 of the whole cat")
     print(f"K5 vs plain, the CPU test's grid ({len(pack.CHECK_GRID)} cases: "
           f"maps 1-2, chroma shift 0-1, (res, prec) in (16, 4), (16, 1), "
           f"(8, 2), (16, 16), (32, 4), F 1 and 3, swap densities 0, 0.3, "
-          f"1; 5 blocks a frame), one block of one frame, 324 words: whole "
-          f"cats equal, two calls byte-equal")
-    print(f"phase 2c: {len(cases) + 1} K5 cases byte-equal to the plain "
+          f"1, 5 blocks a frame; then {len(pack.CHECK_PATHS)} cases of the "
+          f"kernel's other paths: edges 3-128, odd edges, prec = res, two "
+          f"maps' planes with one read, 13 and 37 blocks a frame), one block "
+          f"of one frame, 324 words, frames 1-2 of 3 sliced at an odd "
+          f"offset: whole cats equal, two calls byte-equal")
+    print(f"phase 2c: {len(cases) + 2} K5 cases byte-equal to the plain "
           f"version, each twice ({time.perf_counter() - t0:.1f} s)")
     occ, geo0, _, ay, au, av, swap = planes
     split = {"occupancy": occ, "geometry": geo0, "luma": ay[:, 0],
@@ -553,12 +582,18 @@ def phase_k5(gof):
              for k, t in split.items()}
     nbytes = pack_bytes(*planes, di.cfg)
     k5 = time_pack(planes, di.cfg)
-    print(measured_line("K5 at the first flagship GOF's planes", k5,
-                        nvidia_smi_line()))
+    print(measured_line("K5 at the first flagship GOF's planes", k5, smi))
     print(f"  K5 library call: {PACK_NO_LIBRARY}")
     print("K5 bytes: reads " + ", ".join(f"{k} {v:,}" for k, v in
                                          reads.items())
           + f"; writes {nbytes - sum(reads.values()):,}; total {nbytes:,}")
+    merged = B._concat_inputs([di] * 6)
+    _, *wave = planes_to_device(*merged.arrays, dev)
+    _k5_case(wave, di.cfg, "the batcher's 12-frame merged input")
+    print(measured_line(
+        f"K5 at the batcher's 12-frame narrow merged input (phase 9's first "
+        f"wave, packed whole at chunk 12; F={wave[0].shape[0]})",
+        time_pack(wave, di.cfg), smi))
     return dict(k5, name="pack_planes", route="cuda", source=K5_SOURCE,
                 replaces=K5_REPLACES, max_abs_err=err)
 

@@ -21,7 +21,9 @@ The ``cuda``-marked test holds the kernel against the plain version on
 a card (``pytest -m cuda tests/test_torch_pack.py``; it skips without
 one).
 """
+import re
 from dataclasses import fields as dc_fields
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -50,20 +52,34 @@ NB = 5  # blocks a frame: odd, so no size lines up with anything
 GRID = pack.CHECK_GRID
 
 
-def _planes(seed, mc, cs, res, prec, F, density, nb=NB):
+def _case_id(*values, mc, maps, nb):
+    """A case's test id: its values joined by ``-``, then ``-M2`` where
+    the planes hold more maps than are read and ``-nb13`` where a frame
+    holds other than :data:`NB` blocks."""
+    return "-".join(map(str, values)) + (f"-M{maps}" if maps != mc else "") \
+        + (f"-nb{nb}" if nb != NB else "")
+
+
+def _grid_id(case):
+    mc, cs, res, prec, F, density, maps, nb = case
+    return _case_id(mc, cs, res, prec, F, density, mc=mc, maps=maps, nb=nb)
+
+
+def _planes(seed, mc, cs, res, prec, F, density, nb=NB, maps=None):
     """Block-tiled planes as the staging stacks them: occupancy u8 over
-    0-255, geometry and colour u16 over the whole 10-bit range, and a
-    swap mask of the given density."""
+    0-255, geometry and colour u16 over the whole 10-bit range (``maps``
+    maps of colour, default ``mc``), and a swap mask of the given
+    density."""
     rng = np.random.default_rng(seed)
-    rp, rc = res // prec, res >> cs
+    rp, rc, M = res // prec, res >> cs, maps or mc
 
     def u10(*shape):
         return rng.integers(0, 1024, shape, dtype=np.uint16)
 
     occ = rng.integers(0, 256, (F, nb, rp, rp), dtype=np.uint8)
     planes = (occ, u10(F, nb, res, res), u10(F, nb, res, res),
-              u10(F, mc, nb, res, res), u10(F, mc, nb, rc, rc),
-              u10(F, mc, nb, rc, rc))
+              u10(F, M, nb, res, res), u10(F, M, nb, rc, rc),
+              u10(F, M, nb, rc, rc))
     swap = (rng.random((F, nb)) < density).astype(np.uint8)
     return planes, swap
 
@@ -80,40 +96,63 @@ def _port_pack(planes, swap, cfg):
     return pack.pack_cat_plain(*t, cfg).numpy().view(np.uint32)
 
 
-@pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
-@pytest.mark.parametrize("mc,cs,res,prec,F,density", GRID)
+#: the grid with the reference's native C pack and with numpy: the C pack
+#: takes the map count for the planes' map axis, so it is left out where
+#: the planes hold more maps than are read
+HOST_PACK_CASES = [(native, *g) for g in GRID for native in (True, False)
+                   if not (native and g[6] != g[0])]
+
+
+@pytest.mark.parametrize(
+    "native,mc,cs,res,prec,F,density,maps,nb", HOST_PACK_CASES,
+    ids=[f"{_grid_id(c[1:])}-{'native' if c[0] else 'numpy'}"
+         for c in HOST_PACK_CASES])
 def test_plain_pack_matches_reference_host_pack(monkeypatch, native, mc, cs,
-                                                res, prec, F, density):
+                                                res, prec, F, density, maps,
+                                                nb):
     if not native:
         monkeypatch.setattr("tpu_vpcc.video.codec.native_pack_planes",
                             lambda *a, **k: None)
     planes, swap = _planes(res * 7 + prec + F + mc, mc, cs, res, prec, F,
-                           density)
-    cfg_ref, cfg = _configs(mc, cs, res, prec)
+                           density, nb, maps)
+    cfg_ref, cfg = _configs(mc, cs, res, prec, nb)
     want = ref_tiled.pack_planes_host(*planes, cfg_ref, swap=swap)
     got = _port_pack(planes, swap, cfg)
     assert got.dtype == want.dtype == np.uint32
-    assert got.shape == want.shape == (F, NB, 3 * res * res)
+    assert got.shape == want.shape == (F, nb, 3 * res * res)
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("mc,cs,res,prec", [
-    (2, 1, 16, 4), (1, 1, 16, 4), (2, 0, 8, 2), (1, 0, 16, 16),
-    (2, 1, 32, 4),
-])
-def test_plain_pack_matches_reference_device_pack(mc, cs, res, prec):
+#: the device pack's shapes ``(mc, cs, res, prec, M, nb)``: five of the
+#: grid's product, then every shape of ``pack.CHECK_PATHS``
+DEVICE_PACK_SHAPES = [
+    (2, 1, 16, 4, 2, NB), (1, 1, 16, 4, 1, NB), (2, 0, 8, 2, 2, NB),
+    (1, 0, 16, 16, 1, NB), (2, 1, 32, 4, 2, NB),
+] + [(g[0], g[1], g[2], g[3], g[6], g[7]) for g in pack.CHECK_PATHS]
+
+
+def _shape_id(shape):
+    mc, cs, res, prec, maps, nb = shape
+    return _case_id(mc, cs, res, prec, mc=mc, maps=maps, nb=nb)
+
+
+@pytest.mark.parametrize("mc,cs,res,prec,maps,nb", DEVICE_PACK_SHAPES,
+                         ids=[_shape_id(s) for s in DEVICE_PACK_SHAPES])
+def test_plain_pack_matches_reference_device_pack(mc, cs, res, prec, maps,
+                                                  nb):
     """No block flagged: the cat is the megarow gather's concat of the
     three ``_pack_u32_planes`` planes."""
     F = 2
-    planes, swap = _planes(res + mc + cs, mc, cs, res, prec, F, 0.0)
-    cfg_ref, cfg = _configs(mc, cs, res, prec)
+    planes, swap = _planes(res + mc + cs, mc, cs, res, prec, F, 0.0, nb,
+                           maps)
+    cfg_ref, cfg = _configs(mc, cs, res, prec, nb)
     T2 = res * res
     ref_planes = ref_tiled._pack_u32_planes(
         *(jnp.asarray(a) for a in planes), cfg_ref)
-    want = jnp.concatenate([p.reshape(F * NB, T2) for p in ref_planes],
+    want = jnp.concatenate([p.reshape(F * nb, T2) for p in ref_planes],
                            axis=1)
     got = _port_pack(planes, swap, cfg)
-    np.testing.assert_array_equal(got.reshape(F * NB, 3 * T2),
+    np.testing.assert_array_equal(got.reshape(F * nb, 3 * T2),
                                   np.asarray(want))
 
 
@@ -252,6 +291,77 @@ def test_pack_cat_rejects_bad_inputs():
         T.planes_to_device(bad, *planes, swap, "cpu")
 
 
+def _tiny_planes(F, res, prec=1):
+    planes, swap = _planes(5, 2, 0, res, prec, F, 0.5, 1)
+    _, cfg = _configs(2, 0, res, prec, 1)
+    fields = np.zeros((F, 1, G.N_GROUP_FIELDS), np.int32)
+    _, *t = T.plane_tensors(fields, *planes, swap)
+    return t, cfg
+
+
+@pytest.mark.parametrize("F,res,what", [
+    (1, pack.K5_MAX_RES * 2, "block edges up to 128"),
+    (pack.K5_MAX_FRAMES + 1, 2, "at most 65535 frames"),
+])
+def test_k5_refuses_what_it_cannot_launch(F, res, what):
+    """The wrapper raises before any launch on a block edge above
+    ``K5_MAX_RES`` or more frames than the grid's second axis holds,
+    whatever the device (these checks come before the kernel loads)."""
+    t, cfg = _tiny_planes(F, res)
+    with pytest.raises(ValueError, match=what):
+        pack._pack_cat_cuda(*t, cfg)
+
+
+def test_k5_limits_match_the_kernel():
+    """``ops/pack.py``'s limits are the CUDA source's: its frame bound,
+    and tiles of V3C's largest edge fit a CTA's shared memory a plane at
+    a time (4:4:4, two maps, 2-byte samples in rows padded by 4 bytes)."""
+    src = (Path(pack.__file__).resolve().parent.parent / "csrc"
+           / "pack_planes.cu").read_text()
+    assert f"F > {pack.K5_MAX_FRAMES}" in src
+    pad = int(re.search(r"constexpr int kRowPad = ([0-9]+);", src).group(1))
+    smem = int(re.search(r"constexpr int kSmemOptIn = ([0-9]+);",
+                         src).group(1))
+    res = pack.K5_MAX_RES
+    assert 3 * res * (2 * res + pad) <= smem
+
+
+def test_pack_tool_needs_a_card(monkeypatch):
+    from tpu_vpcc_torch.tools import kernel_times
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        kernel_times.main(["--pack"])
+
+
+@pytest.mark.parametrize("maps", [1, 2])
+def test_seeded_planes_pack_as_the_reference(monkeypatch, maps):
+    """The planes ``kernel_times --pack`` and ``chip_smoke.py`` time K5 on
+    (``seeded_planes``, ``pack_config``) are staging planes: the plain
+    pack of them equals the reference's numpy host pack (its C pack takes
+    no planes with more maps than are read), and ``pack_bytes`` counts
+    each plane read once and the cat written once."""
+    from tpu_vpcc_torch.tools import kernel_times as K
+
+    monkeypatch.setattr("tpu_vpcc.video.codec.native_pack_planes",
+                        lambda *a, **k: None)
+
+    mc, cs, res, prec, F, nb = 1, 1, 16, 4, 2, 7
+    gen = torch.Generator().manual_seed(3)
+    t = K.seeded_planes(mc, cs, res, prec, F, 0.3, nb, gen, maps)
+    cfg = K.pack_config(mc, cs, res, prec, nb)
+    cfg_ref, _ = _configs(mc, cs, res, prec, nb)
+    arrays = [x.numpy() for x in t]
+    arrays[1:6] = [a.view(np.uint16) for a in arrays[1:6]]
+    want = ref_tiled.pack_planes_host(*arrays[:6], cfg_ref, swap=arrays[6])
+    got = pack.pack_cat(*t, cfg).numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, want)
+    rc = res >> cs
+    read = (res // prec) ** 2 + 1 + 2 * res * res + 2 * res * res \
+        + 2 * 2 * rc * rc  # occupancy, swap, geometry, luma, chroma
+    assert K.pack_bytes(*t, cfg) == F * nb * (read + 12 * res * res)
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -259,15 +369,18 @@ def test_pack_cat_rejects_bad_inputs():
 
 @pytest.mark.cuda
 def test_k5_kernel_matches_plain_on_card():
-    """K5 against its plain version over the CPU grid, at one block of
-    one frame, and at a total no multiple of the kernel's 256-thread
-    block; each case twice, the whole cat byte-equal."""
+    """K5 against its plain version over the CPU grid (every path of the
+    kernel), at one block of one frame, at a total no multiple of a
+    256-thread CTA, and on frames sliced from a larger input at an offset
+    that leaves the swap mask on an odd byte; each case twice, the whole
+    cat byte-equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (on the card: pytest -m cuda)")
-    cases = [g[:4] + (g[4], g[5], NB) for g in GRID]
-    cases += [(2, 1, 16, 4, 1, 1.0, 1), (1, 1, 6, 3, 1, 0.5, 3)]
-    for mc, cs, res, prec, F, density, nb in cases:
-        planes, swap = _planes(res + F, mc, cs, res, prec, F, density, nb)
+    cases = [g[:6] + (g[7], g[6]) for g in GRID]
+    cases += [(2, 1, 16, 4, 1, 1.0, 1, 2), (1, 1, 6, 3, 1, 0.5, 3, 1)]
+    for mc, cs, res, prec, F, density, nb, maps in cases:
+        planes, swap = _planes(res + F, mc, cs, res, prec, F, density, nb,
+                               maps)
         _, cfg = _configs(mc, cs, res, prec, nb)
         fields = np.zeros((F, 1, G.N_GROUP_FIELDS), np.int32)
         _, *t = T.planes_to_device(fields, *planes, swap, "cuda")
@@ -278,4 +391,14 @@ def test_k5_kernel_matches_plain_on_card():
         torch.cuda.synchronize()
         assert pack.launches == before + 2
         assert torch.equal(got, want) and torch.equal(again, want), (
-            mc, cs, res, prec, F, density, nb)
+            mc, cs, res, prec, F, density, nb, maps)
+    # frames 1-2 of three, nb odd: each plane starts past frame 0
+    planes, swap = _planes(77, 2, 1, 16, 4, 3, 0.3, 7)
+    _, cfg = _configs(2, 1, 16, 4, 7)
+    fields = np.zeros((3, 1, G.N_GROUP_FIELDS), np.int32)
+    _, *t = T.planes_to_device(fields, *planes, swap, "cuda")
+    sliced = [x[1:] for x in t]
+    assert sliced[-1].data_ptr() % 2 == 1
+    want = pack.pack_cat_plain(*t, cfg)[1:]
+    for _ in range(2):
+        assert torch.equal(pack.pack_cat(*sliced, cfg), want)

@@ -36,18 +36,48 @@ import torch
 from . import _build
 from .tiled import _wrap32
 
+#: the grid's cases past the product: K5's generic instantiation (other
+#: edges, a precision that is no power of two, odd edges whose words are
+#: stored one at a time, an edge whose planes are staged one at a time),
+#: one map read of planes that hold two, and block counts that are no
+#: multiple of the blocks a CTA takes
+CHECK_PATHS = tuple(
+    (2, cs, res, prec, 3, 0.3, 2, 5)
+    for cs in (0, 1)
+    for res, prec in ((4, 2), (64, 8), (6, 3), (12, 12))
+) + (
+    (1, 0, 5, 5, 2, 0.5, 1, 5),
+    (2, 0, 3, 1, 3, 0.5, 2, 5),
+    (2, 0, 128, 16, 1, 0.3, 2, 3),
+    (1, 1, 16, 4, 3, 0.3, 2, 5),
+    (1, 0, 8, 2, 3, 0.3, 2, 5),
+    (1, 0, 6, 3, 3, 0.3, 2, 5),
+    (2, 1, 16, 4, 3, 0.3, 2, 13),
+    (2, 1, 8, 2, 3, 0.3, 2, 37),
+    (2, 1, 32, 4, 3, 0.3, 2, 13),
+)
 #: the shapes the pack is held at, against the reference's packs on the
 #: CPU (``tests/test_torch_pack.py``) and against its plain version on
 #: the card (``chip_smoke.py`` phase 2c): ``(map_count, chroma_shift,
-#: res, prec, F, swap density)``
+#: res, prec, F, swap density, M, nb)``, M the map axis of the colour
+#: planes and nb the blocks a frame. The product reaches the kernel's
+#: instantiations for block edges 8, 16 and 32; :data:`CHECK_PATHS`, after
+#: it, its other paths.
 CHECK_GRID = tuple(
-    (mc, cs, res, prec, F, density)
+    (mc, cs, res, prec, F, density, mc, 5)
     for mc in (1, 2)
     for cs in (0, 1)
     for res, prec in ((16, 4), (16, 1), (8, 2), (16, 16), (32, 4))
     for F in (1, 3)
     for density in (0.0, 0.3, 1.0)
-)
+) + CHECK_PATHS
+
+#: the largest block edge K5 takes: the largest a V3C stream signals
+#: (``log2_patch_packing_block_size`` is 3 bits), whose tiles still fit a
+#: CTA's shared memory a plane at a time
+K5_MAX_RES = 128
+#: the most frames K5 takes in one launch (its grid's second axis)
+K5_MAX_FRAMES = 65535
 
 #: K5 launches made by :func:`pack_cat` in this process
 launches = 0
@@ -152,12 +182,22 @@ def _load():
 
 
 def _pack_cat_cuda(occ, geo0, geo1, ay, au, av, swap, cfg):
+    """K5 on the card. Each array may start anywhere its dtype allows (a
+    slice of frames, say): the kernel loads each as widely as its address
+    and tile size allow. Raises on non-contiguous planes, a block edge
+    above :data:`K5_MAX_RES` or more than :data:`K5_MAX_FRAMES` frames."""
     tensors = (occ, geo0, geo1, ay, au, av, swap)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("K5 takes contiguous planes")
-    lib = _load()
     res = cfg.occupancy_resolution
     F, nb = occ.shape[0], occ.shape[1]
+    if res > K5_MAX_RES:
+        raise ValueError(f"K5 takes block edges up to {K5_MAX_RES}, got "
+                         f"{res}")
+    if F > K5_MAX_FRAMES:
+        raise ValueError(f"K5 takes at most {K5_MAX_FRAMES} frames a "
+                         f"launch, got {F}")
+    lib = _load()
     dev = occ.device
     cat = torch.empty((F, nb, 3 * res * res), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):

@@ -10,10 +10,19 @@ against its plain version and the probe's ``want``:
 
     python -m tpu_vpcc_torch.tools.kernel_times [--probes P10,P11] [--repeats 3]
 
+or K5, the device pack, on seeded planes at the first flagship GOF's
+shape (:data:`PACK_SHAPE`) at swap densities 0, 0.3 and 1, after checking
+its cat against its plain version's:
+
+    python -m tpu_vpcc_torch.tools.kernel_times --pack [--repeats 5]
+
 It needs a card; every line names the card and its power limit. With
-``--repeats N`` each probe is measured N times in turn and a line per
-probe compares its kernel with its library call (:func:`verdict`). The
-last line is one JSON object with the numbers, by probe.
+``--repeats N`` each probe (each density) is measured N times in turn;
+a line per probe compares its kernel with its library call
+(:func:`verdict`), a line per density gives K5's median and spread. The
+last line is one JSON object with the numbers, by probe or density. Run
+in a parent commit's tree and this one in turns (parent, this, this,
+parent), ``--pack`` compares two versions of K5 on one card.
 """
 
 from __future__ import annotations
@@ -405,6 +414,45 @@ def pack_bytes(occ, geo0, geo1, ay, au, av, swap, cfg) -> int:
     return read + occ.shape[0] * occ.shape[1] * 3 * res * res * 4
 
 
+#: K5's timed shape, the first flagship GOF's planes: ``(F, nb, res,
+#: prec, chroma shift, map count)`` (two 1280^2 frames, 4:2:0, two maps)
+PACK_SHAPE = (2, 6400, 16, 4, 1, 2)
+#: the swap densities ``--pack`` times K5 at
+PACK_DENSITIES = (0.0, 0.3, 1.0)
+
+
+def seeded_planes(mc, cs, res, prec, F, density, nb, gen, maps=None):
+    """Random planes on ``gen``'s device as ``ops.tiled.planes_to_device``
+    gives them: occupancy over 0-255, samples over the full 10-bit range,
+    ``maps`` (default ``mc``) maps of colour, a swap mask of
+    ``density``."""
+    dev = gen.device
+    rp, rc, M = res // prec, res >> cs, maps or mc
+
+    def u10(*shape):
+        return torch.randint(0, 1024, shape, dtype=torch.int16, device=dev,
+                             generator=gen)
+
+    occ = torch.randint(0, 256, (F, nb, rp, rp), dtype=torch.uint8,
+                        device=dev, generator=gen)
+    swap = (torch.rand((F, nb), device=dev, generator=gen)
+            < density).to(torch.uint8)
+    return (occ, u10(F, nb, res, res), u10(F, nb, res, res),
+            u10(F, M, nb, res, res), u10(F, M, nb, rc, rc),
+            u10(F, M, nb, rc, rc), swap)
+
+
+def pack_config(mc, cs, res, prec, nb):
+    """The port's FrameConfig of a one-block-high canvas of ``nb``
+    blocks: what K5 reads of it is the block edge, the occupancy
+    precision, the chroma shift and the map count."""
+    from ..ops.reconstruct import make_config
+
+    return make_config(width=res * nb, height=res, occupancy_resolution=res,
+                       occupancy_precision=prec, map_count=mc,
+                       chroma_shift=cs)
+
+
 def time_pack(planes, cfg) -> dict:
     """K5 on ``planes`` (``(occ, geo0, geo1, ay, au, av, swap)`` on the
     card) by :func:`measure`, beside ``pack_cat_plain``; no library
@@ -511,12 +559,61 @@ def verdict(kernel_ms, library_ms) -> dict:
             "verdict": who}
 
 
+def pack_main(repeats: int, smi: str) -> dict:
+    """``--pack``: K5 at :data:`PACK_SHAPE` at each of
+    :data:`PACK_DENSITIES`, its cat checked against the plain version's
+    (raises on a difference), then ``repeats`` measurements a density in
+    turn; a line per measurement and, with ``repeats`` above 1, a line
+    per density with the median and spread of the device-only times."""
+    from ..ops import pack
+
+    F, nb, res, prec, cs, mc = PACK_SHAPE
+    cfg = pack_config(mc, cs, res, prec, nb)
+    cases = {}
+    for i, density in enumerate(PACK_DENSITIES):
+        gen = torch.Generator(device="cuda").manual_seed(60 + i)
+        planes = seeded_planes(mc, cs, res, prec, F, density, nb, gen)
+        got = pack._pack_cat_cuda(*planes, cfg)
+        if not torch.equal(got, pack.pack_cat_plain(*planes, cfg)):
+            raise AssertionError(f"K5 differs from its plain version at "
+                                 f"swap density {density}")
+        cases[density] = planes
+    print(f"K5 at F={F} nb={nb} res={res} prec={prec} chroma shift {cs}, "
+          f"{mc} maps: cat equal to the plain version's at swap densities "
+          f"{list(PACK_DENSITIES)}")
+    runs = {d: [] for d in PACK_DENSITIES}
+    for r in range(repeats):
+        for density, planes in cases.items():
+            m = time_pack(planes, cfg)
+            runs[density].append(m)
+            print(measured_line(f"K5 at swap density {density}, "
+                                f"measurement {r + 1} of {repeats}", m, smi))
+    out = {}
+    for density, ms in runs.items():
+        dev = [m["ms"] for m in ms]
+        out[str(density)] = {
+            "ms": dev, "median_ms": statistics.median(dev),
+            "spread_ms": max(dev) - min(dev), "bound_ms": ms[0]["bound_ms"],
+            "single_call_ms": [m["single_call_ms"] for m in ms],
+            "queued_ms": [m["queued_ms"] for m in ms],
+        }
+        if repeats > 1:
+            print(f"K5 at swap density {density} ({smi}), {repeats} "
+                  f"measurements: median {statistics.median(dev):.4f} ms, "
+                  f"spread {max(dev) - min(dev):.4f} ms, "
+                  f"{100 * ms[0]['bound_ms'] / statistics.median(dev):.1f}% "
+                  f"of the bound {ms[0]['bound_ms']:.4f} ms")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog=f"python -m {__name__}")
     ap.add_argument("--probes", default=",".join(probes.PROBES),
                     help="comma-separated probes (default: all twelve)")
+    ap.add_argument("--pack", action="store_true",
+                    help="time K5, the device pack, instead of the probes")
     ap.add_argument("--repeats", type=int, default=1,
-                    help="measurements of each probe, in turn")
+                    help="measurements of each probe or density, in turn")
     args = ap.parse_args(argv)
     names = [p.strip() for p in args.probes.split(",") if p.strip()]
     unknown = [p for p in names if p not in BIG]
@@ -527,6 +624,10 @@ def main(argv=None) -> int:
     device = resolve_device("cuda")
     smi = nvidia_smi_line()
     print(f"device: {torch.cuda.get_device_name(device)} ({smi})")
+    if args.pack:
+        print(json.dumps({"card": smi,
+                          "pack": pack_main(args.repeats, smi)}))
+        return 0
     results = {p: [] for p in names}
     for r in range(args.repeats):
         for p in names:
