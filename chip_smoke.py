@@ -85,9 +85,10 @@ failure:
      the HEVC decode alone is served from the store's frames (this
      machine has no libavcodec); V3C parse, atlas, group tables,
      staging, the kernels, smoothing, the host tails and PLY run as
-     they do with the bridge. Each of the 18 entries (every fixture
-     family of ``tests/test_torch_e2e.py`` and the 1280^2 lossy
-     ``flagship_1280_q8``) through ``runtime.cli.main`` in this process
+     they do with the bridge. Each of the 19 entries (every fixture
+     family of ``tests/test_torch_e2e.py``, the 1280^2 lossy
+     ``flagship_1280_q8`` and the stream of ``examples/roundtrip.py``)
+     through ``runtime.cli.main`` in this process
      with ``--device cuda`` and its flags: exit 0, every file byte-equal
      to the port's ``--oracle`` CLI on the CPU from the same store and
      to the manifest's SHA-256, and the K1, K2W and K1F launch counters,
@@ -103,6 +104,19 @@ failure:
      turns: frames equal to the manifest,
      frames/s by host clock and the ``DecodeStats`` stage split (parse,
      the store lookup, tables, staging, dispatch, fetch, PointSet3);
+ 6b. the port's encode side: with the video store in place of libx265
+     (``served_encode``; this machine has no libx265 either), the port's
+     ``build_fixture_stream`` rebuilds ``flagship_1280_q8`` (from
+     ``video_store.flagship_frames``) and ``roundtrip`` (the scene of
+     ``tpu_vpcc_torch.examples.roundtrip``), each byte-equal to its
+     committed stream, with the host seconds of each rebuild; then, under
+     ``served``, the rebuilt flagship through ``Decoder`` on the card
+     with one and with two GOFs in flight and the roundtrip example's
+     ``main(..., device="cuda")``: every frame byte-equal to phase 6's
+     oracle files and the manifest's SHA-256, K1, K2W, K1F and K5
+     launched as the manifest says; the rebuilt flagship repeated to
+     four GOFs, frames/s beside the card's name and power limit. The
+     native video bridge's loader is never called;
   7. K3, the cursor compaction experiment's kernel, against its plain
      version: the two-frame flagship wide extent (448 chunks) and two odd
      chunk counts at densities 0, 0.3, 0.7 and 1, then the first
@@ -200,6 +214,8 @@ ROOT = Path(__file__).resolve().parent
 STREAM_FLAGSHIP = "flagship_1280_q8"
 #: GOFs of the timed stream (its one GOF repeated)
 STREAM_GOFS = 4
+#: the store's entries that phase 6b rebuilds with the port's encoder
+REBUILT = (STREAM_FLAGSHIP, "roundtrip")
 #: what each ``DecodeStats`` stage of a stream decode is
 STAGE_LABELS = {
     "video_decode": "video_decode (store lookup)",
@@ -1440,11 +1456,27 @@ def _quantized(stream: Path) -> bool:
     return bool(ctx.get_asps(0).patch_size_quantizer_present_flag)
 
 
+def _check_launches(name, entry, what, host_packed: bool = False):
+    """The K1, K2W and K1F launches since the last reset equal the
+    manifest's, and K5's the device-packed tiled dispatches: one a K1 or
+    K2W launch, none where the host packs the cats (quantized patch
+    extents)."""
+    launches = _launch_counts()
+    check({k: launches[k] for k in entry.launches} == entry.launches,
+          f"{name} ({what}): kernel launches {launches}, manifest "
+          f"{entry.launches}")
+    k5 = 0 if host_packed else entry.launches["K1"] + entry.launches["K2W"]
+    check(launches["K5"] == k5,
+          f"{name} ({what}): K5 launched {launches['K5']} times, want {k5}")
+    return launches
+
+
 def phase_stream():
     """Phase 6: every entry of the committed video store
     (``tools/video_store.py``) through the port's CLI on the card, the
     HEVC decode replaced by the store's lookup and nothing else; then
-    the 1280^2 lossy stream through ``Decoder``, timed."""
+    the 1280^2 lossy stream through ``Decoder``, timed. Returns the
+    oracle CLI's files of the :data:`REBUILT` entries, by name."""
     import logging
     import tempfile
 
@@ -1457,6 +1489,7 @@ def phase_stream():
     store = VideoStore()
     check(STREAM_FLAGSHIP in store.entries,
           f"the video store has no entry {STREAM_FLAGSHIP}")
+    oracles = {}
     with served(store), tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         for name, e in store.entries.items():
@@ -1467,16 +1500,9 @@ def phase_stream():
             rc = cli.main([*args, "-o", str(tmp / name / "cuda"),
                            "--device", "cuda"])
             dt = time.perf_counter() - t0
-            launches = _launch_counts()
             check(rc == 0, f"{name}: the CLI on the card exited {rc}")
-            check({k: launches[k] for k in e.launches} == e.launches,
-                  f"{name}: kernel launches {launches}, manifest "
-                  f"{e.launches}")
-            # K5 packs each device-packed tiled dispatch's cat
-            k5 = 0 if _quantized(e.stream) else (e.launches["K1"]
-                                                  + e.launches["K2W"])
-            check(launches["K5"] == k5,
-                  f"{name}: K5 launched {launches['K5']} times, want {k5}")
+            launches = _check_launches(name, e, "CLI",
+                                       host_packed=_quantized(e.stream))
             rc = cli.main([*args, "-o", str(tmp / name / "oracle"),
                            "--oracle", "--device", "cpu"])
             check(rc == 0, f"{name}: the oracle CLI exited {rc}")
@@ -1485,6 +1511,8 @@ def phase_stream():
             for n in dev:
                 check(dev[n] == ora[n], f"{name}: {n} differs from the "
                       f"oracle's")
+            if name in REBUILT:
+                oracles[name] = ora
             print(f"stream {name} {' '.join(e.flags)}: "
                   f"{len(dev)} frames, "
                   f"{[o['points'] for o in e.outputs]} points, byte-equal "
@@ -1516,6 +1544,7 @@ def phase_stream():
         flagship_stream(store)
     print(f"phase 6: {len(store.entries)} store entries on the card, "
           f"{store.hits} lookups; {time.perf_counter() - t_phase:.1f} s")
+    return oracles
 
 
 def flagship_stream(store):
@@ -1587,6 +1616,160 @@ def flagship_stream(store):
               f"reconstruct holds the recon_ stages): " + ", ".join(
                   f"{STAGE_LABELS.get(k, k)} {v * 1e3 / STREAM_GOFS:.2f}"
                   for k, v in sorted(med.items())))
+
+
+@contextmanager
+def bridge_refused():
+    """While open, every call of the native video bridge's loader
+    (``video.codec._load``) is refused and recorded; on exit the run
+    fails if there was one."""
+    from tpu_vpcc_torch.video import codec
+
+    calls = []
+
+    def refuse():
+        calls.append(1)
+        raise OSError("phase 6b may not load the native video bridge")
+
+    real = codec._load
+    codec._load = refuse
+    try:
+        yield
+    finally:
+        codec._load = real
+    check(not calls, f"the native video bridge's loader was called "
+          f"{len(calls)} times")
+
+
+def phase_encode(oracles):
+    """Phase 6b: the port's encode side. With the video store in place of
+    libx265 (``served_encode``), the port's ``build_fixture_stream``
+    rebuilds the :data:`REBUILT` entries from their recipes, each
+    byte-equal to its committed stream, host clock. With the store in
+    place of the HEVC decode (``served``), the rebuilt streams decode on
+    the card: ``flagship_1280_q8`` through ``Decoder`` with one and with
+    two GOFs in flight, the roundtrip example through its ``main`` on the
+    card; every frame byte-equal to ``oracles`` (phase 6's oracle CLI
+    on the committed stream, which the rebuilt one equals) and to the
+    manifest's SHA-256, and K1, K2W, K1F and K5 launched as the manifest
+    says. Then the rebuilt flagship repeated to :data:`STREAM_GOFS` GOFs,
+    frames/s by host clock. The native video bridge is never loaded."""
+    import hashlib
+    import tempfile
+
+    import numpy as np
+
+    from tpu_vpcc_torch.examples import roundtrip
+    from tpu_vpcc_torch.runtime.pipeline import Decoder, Params
+    from tpu_vpcc_torch.tools.kernel_times import nvidia_smi_line
+    from tpu_vpcc_torch.tools.video_store import (
+        FLAGSHIP_BUILD,
+        VideoStore,
+        flagship_frames,
+        served,
+        served_encode,
+    )
+    from tpu_vpcc_torch.utils.fixtures import build_fixture_stream
+    from tpu_vpcc_torch.utils.ply import format_ply
+
+    t_phase = time.perf_counter()
+    store = VideoStore()
+    recipes = {
+        STREAM_FLAGSHIP: lambda: build_fixture_stream(flagship_frames(),
+                                                      **FLAGSHIP_BUILD),
+        "roundtrip": lambda: build_fixture_stream(roundtrip.scene()),
+    }
+    check(set(recipes) == set(REBUILT) == set(oracles),
+          f"phase 6b: recipes {sorted(recipes)}, oracles {sorted(oracles)}")
+    smi = nvidia_smi_line()
+    with bridge_refused(), served_encode(store), served(store):
+        rebuilt = {}
+        for name, build in recipes.items():
+            t0 = time.perf_counter()
+            data = build()
+            dt = time.perf_counter() - t0
+            check(data == store.entries[name].stream.read_bytes(),
+                  f"{name}: the port's rebuild differs from the committed "
+                  f"stream")
+            rebuilt[name] = data
+            print(f"rebuild {name}: the port's build_fixture_stream, the "
+                  f"store in place of libx265, {len(data)} bytes "
+                  f"byte-equal to the committed stream; host {dt:.3f} s")
+        name = STREAM_FLAGSHIP
+        e = store.entries[name]
+        first = None
+        for depth in (1, 2):
+            _reset_launches()
+            dec = Decoder(Params(rebuilt[name], device="cuda",
+                                 pipeline_gofs=depth, **e.params))
+            dec.start()
+            frames = list(dec)
+            _check_launches(name, e, f"pipeline_gofs={depth}")
+            check(len(frames) == len(e.outputs),
+                  f"{name}: {len(frames)} frames, want {len(e.outputs)}")
+            if first is None:
+                first = frames
+                for ps, o in zip(frames, e.outputs):
+                    ply = format_ply(ps)
+                    check(ply == oracles[name][o["name"]],
+                          f"{name}: {o['name']} differs from the oracle's")
+                    check(hashlib.sha256(ply).hexdigest() == o["sha256"],
+                          f"{name}: {o['name']} differs from the "
+                          f"manifest's digest")
+            for k, (ps, ref) in enumerate(zip(frames, first)):
+                check(np.array_equal(ps.positions, ref.positions)
+                      and np.array_equal(ps.colors, ref.colors),
+                      f"{name}: frame {k} at pipeline_gofs={depth} differs")
+        print(f"rebuilt {name} on the card: {len(first)} frames "
+              f"{[len(f) for f in first]} points, byte-equal to the oracle "
+              f"and the manifest at pipeline_gofs 1 and 2; launches "
+              f"{_launch_counts()} a decode")
+        # frames/s: the rebuilt stream repeated, as phase 6 times the
+        # committed one
+        data = rebuilt[name] + rebuilt[name][1:] * (STREAM_GOFS - 1)
+        n_frames = STREAM_GOFS * len(e.outputs)
+        runs = {1: [], 2: []}
+        for depth in (1, 2, 2, 1):
+            dec = Decoder(Params(data, device="cuda", pipeline_gofs=depth,
+                                 **e.params))
+            t0 = time.perf_counter()
+            dec.start()
+            frames = list(dec)
+            runs[depth].append(time.perf_counter() - t0)
+            check(len(frames) == n_frames,
+                  f"{name}: {len(frames)} frames, want {n_frames}")
+            for k, ps in enumerate(frames):
+                ref = first[k % len(first)]
+                check(np.array_equal(ps.positions, ref.positions)
+                      and np.array_equal(ps.colors, ref.colors),
+                      f"{name}: repeated frame {k} differs")
+        print(f"rebuilt {name} through Decoder(Params(stream, device="
+              f"'cuda')), {STREAM_GOFS} GOFs of {len(e.outputs)} frames "
+              f"({smi}): " + "; ".join(
+                  f"pipeline_gofs={d}: runs {[round(s, 4) for s in v]} s, "
+                  f"{n_frames / statistics.median(v):.2f} frames/s"
+                  for d, v in runs.items()))
+        name = "roundtrip"
+        e = store.entries[name]
+        with tempfile.TemporaryDirectory() as tmp:
+            _reset_launches()
+            t0 = time.perf_counter()
+            rc = roundtrip.main(tmp, device="cuda")
+            dt = time.perf_counter() - t0
+            launches = _check_launches(name, e, "example")
+            check(rc == 0, f"the roundtrip example exited {rc}")
+            check((Path(tmp) / "stream.bin").read_bytes() == rebuilt[name],
+                  "the roundtrip example's stream differs from the rebuild")
+            files = _ply_outputs(tmp, e, "the roundtrip example")
+            check(files == oracles[name],
+                  "the roundtrip example's files differ from the oracle's")
+        print(f"roundtrip example on the card (tpu_vpcc_torch.examples."
+              f"roundtrip.main, device 'cuda'): {len(files)} frames "
+              f"{[o['points'] for o in e.outputs]} points, byte-equal to "
+              f"the oracle and the manifest; launches {launches}; "
+              f"{dt:.2f} s ({smi})")
+    print(f"phase 6b: {store.encode_hits} encodes served, {store.hits} "
+          f"lookups, no native bridge; {time.perf_counter() - t_phase:.1f} s")
 
 
 def _covered_err(got, ref, valid) -> int:
@@ -2273,7 +2456,7 @@ def main() -> int:
                                                k1f_err, k2w_err)
         gather, gather_gofs, gather_out = phase_gather(fcfg, frame_sets,
                                                        narrow_out)
-        phase_stream()
+        phase_encode(phase_stream())
         k3 = phase_cursor(gofs[0], S_flag)
         probe_kernels = phase_probes()
         t0 = time.perf_counter()

@@ -1,13 +1,18 @@
 """The port's own copies of tpu_vpcc's host layers against the originals.
 
 ``tpu_vpcc_torch`` keeps its own copies of the jax-free host modules
-(``bitio``, ``v3c``, ``atlas``, ``video``, ``reconstruction``, ``utils``,
-the smoothing configs and numpy oracle, the colour tables, the host half
-of the pipeline). Each copy must compute what its original computes:
-the same stream bytes parse to the same patch frames, the same group
-tables, the same oracle point clouds and the same PLY bytes, over the
-fixture families of ``test_torch_e2e``; the synthetic scenes and the
-flagship GOF made from one seed are equal array for array.
+(``bitio``, ``v3c`` with the whole writer, ``atlas``, ``video`` with the
+libx265 encoder, ``reconstruction``, ``utils`` with
+``build_fixture_stream`` and the raw and EOM planting helpers, the
+smoothing configs and numpy oracle, the colour tables, the host half of
+the pipeline). Each copy must compute what its original computes: the
+same stream bytes parse to the same patch frames, the same group tables,
+the same oracle point clouds and the same PLY bytes, over the fixture
+families of ``test_torch_e2e``; the synthetic scenes, with raw and EOM
+patches planted, and the flagship GOF made from one seed are equal
+array for array; the writer, ``utils/fixtures.py`` and the synthetic
+scenes are copied word for word. ``test_torch_encoder`` holds the encode
+side's results.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from __future__ import annotations
 import dataclasses
 import enum
 import functools
+import importlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -163,6 +170,47 @@ def test_synthetic_frame_matches_reference(kw):
     ref = ref_make_synthetic_frame(np.random.default_rng(17), frame_index=1,
                                    **kw)
     assert canon(got) == canon(ref)
+
+
+def _planted(package: str, case: str):
+    """A synthetic frame of ``package`` (two maps, or one for ``eom1``,
+    occupancy precision 1) with a raw or an EOM patch planted on the main
+    canvas or in the auxiliary video, from one seed."""
+    synthetic = importlib.import_module(f"{package}.utils.synthetic")
+    rng = np.random.default_rng(29)
+    sf = synthetic.make_synthetic_frame(
+        rng, width=64, height=64, occupancy_resolution=8,
+        occupancy_precision=1, map_count=1 if case == "eom1" else 2,
+        n_patches=2, frame_index=0)
+    aux = case.endswith("aux")
+    if case.startswith("raw"):
+        patch = synthetic.plant_raw_patch(rng, sf, (0, 6, 2, 2), n_points=21,
+                                          offsets=(3, 1, 2), aux=aux)
+    else:
+        patch = synthetic.plant_eom_patch(
+            rng, sf, (4, 6, 2, 2), list(range(len(sf.meta.patches))),
+            aux=aux, aux_size=(64, 48))
+    synthetic.ensure_aux_planes(sf, (16, 16))  # a no-op where planted
+    return sf, patch
+
+
+@pytest.mark.parametrize("case", ["raw", "raw_aux", "eom", "eom_aux", "eom1"])
+def test_planted_patches_match_reference(case):
+    """``plant_raw_patch``, ``plant_eom_patch`` and ``ensure_aux_planes``
+    give equal frames and patches in both packages."""
+    got = _planted("tpu_vpcc_torch", case)
+    assert canon(got) == canon(_planted("tpu_vpcc", case))
+    assert got[1].in_aux_video == case.endswith("aux")
+
+
+@pytest.mark.parametrize("module", ["v3c/writer.py", "utils/fixtures.py",
+                                    "utils/synthetic.py"])
+def test_encode_side_copies_are_verbatim(module):
+    """The writer, ``utils/fixtures.py`` and the synthetic scenes
+    are the reference's modules word for word."""
+    root = Path(__file__).resolve().parent.parent
+    assert (root / "tpu_vpcc_torch" / module).read_text() == \
+        (root / "tpu_vpcc" / module).read_text()
 
 
 def test_color_luts_match_reference():

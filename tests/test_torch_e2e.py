@@ -12,9 +12,12 @@ decode through ``Decoder`` and ``python -m tpu_vpcc_torch.runtime.cli``
 with rotated orientations, and prepared GOFs with rotated orientations or
 12-bit geometry, take the gather fallback.
 """
+import importlib
 import os
 import subprocess
 import sys
+import types
+from contextlib import contextmanager
 from dataclasses import replace
 from pathlib import Path
 
@@ -179,7 +182,7 @@ def _rotated(seed, n_frames=2, map_count=2):
         patches = []
         for p in sf.meta.patches:
             for o in rng.permutation(len(ROTATED)):
-                q = replace(p, patch_orientation=ROTATED[o])
+                q = replace(p, patch_orientation=PatchOrientation(ROTATED[o]))
                 try:
                     _check_orientation_in_range(q, 64, 64)
                 except RefUnsupportedFeature:
@@ -214,6 +217,18 @@ def _stream_vui():
     return build_fixture_stream(_mk(53), vui=rich_vui())
 
 
+def _stream_verify():
+    """The recipe of the committed verify stream: it rebuilds the file
+    byte for byte."""
+    rng = np.random.default_rng(123)
+    return build_fixture_stream([
+        make_synthetic_frame(rng, width=64, height=64,
+                             occupancy_resolution=16, occupancy_precision=4,
+                             n_patches=3, frame_index=i)
+        for i in range(2)
+    ])
+
+
 # the twelve feature families of tpu_vpcc's on-device parity check
 # (bench.py tpu_family_parity; its eom and secondary_attrs families are
 # covered by raw_eom_secondary), the verify stream, and two more cases of
@@ -242,6 +257,78 @@ STREAMS = {
         _rotated(89, map_count=3), multi_map_streams=True),
     "rotated_smoothing_secondary": _stream_rotated_smoothing_secondary,
 }
+
+#: every family's recipe: ``STREAMS``, with the verify stream built
+RECIPES = dict(STREAMS, verify=_stream_verify)
+#: the JAX package's test modules whose helpers author some families
+HELPER_MODULES = ("tests.test_eom", "tests.test_raw_patches", "tests.test_plr",
+                  "tests.test_aux_video", "tests.test_pixel_interleave",
+                  "tests.test_aux_multitile", "tests.test_vui")
+#: the packages a family can be built with
+PACKAGES = ("tpu_vpcc", "tpu_vpcc_torch")
+
+
+class _Absent:
+    """Stands for an object of ``tpu_vpcc`` that the port lacks: any use
+    raises."""
+
+    def __init__(self, name):
+        self._name = name
+
+    def __getattr__(self, attr):
+        raise AttributeError(f"{self._name} has no counterpart in "
+                             f"tpu_vpcc_torch")
+
+    def __call__(self, *args, **kw):
+        raise TypeError(f"{self._name} has no counterpart in tpu_vpcc_torch")
+
+
+def _counterpart(value):
+    """The port's object of the same name as ``value``, an object of
+    ``tpu_vpcc`` (a module, or a function or class of one); an
+    :class:`_Absent` where the port lacks it; None for anything else."""
+    if isinstance(value, types.ModuleType):
+        module, attr = value.__name__, None
+    else:
+        module = getattr(value, "__module__", None)
+        attr = getattr(value, "__qualname__", None)
+    if not isinstance(module, str) or module.split(".")[0] != "tpu_vpcc":
+        return None
+    name = "tpu_vpcc_torch" + module[len("tpu_vpcc"):]
+    try:
+        port = importlib.import_module(name)
+        return port if attr is None else getattr(port, attr)
+    except (ImportError, AttributeError):
+        return _Absent(f"{module}.{attr}" if attr else module)
+
+
+@contextmanager
+def built_with(package: str):
+    """Build the families (``RECIPES``) with ``package`` while open.
+    For ``tpu_vpcc`` nothing changes. For ``tpu_vpcc_torch`` every name
+    that this module and :data:`HELPER_MODULES` bind to an object of
+    ``tpu_vpcc`` (``build_fixture_stream``, ``make_synthetic_frame``,
+    ``plant_raw_patch``, ``Patch``, ``PatchOrientation``, the writer,
+    ...) is bound to the port's object of the same name, and restored on
+    exit: the recipes are the same code, built by the port's scene
+    generator, stream writer and encoder."""
+    assert package in PACKAGES, package
+    saved = []
+    if package == "tpu_vpcc_torch":
+        for module in [sys.modules[__name__],
+                       *map(importlib.import_module, HELPER_MODULES)]:
+            space = vars(module)
+            for name, value in list(space.items()):
+                port = _counterpart(value)
+                if port is not None:
+                    saved.append((space, name, value))
+                    space[name] = port
+    try:
+        yield
+    finally:
+        for space, name, value in saved:
+            space[name] = value
+
 
 SMOOTHING = dict(apply_geo_smoothing_type=True, apply_attr_smoothing_type=True)
 #: decoder options of a family (the reference's Params takes the same)

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``tpu_vpcc_torch`` and nothing in
 ``chip_smoke.py`` imports the JAX package (``tpu_vpcc``) or jax, and a
-decode through the port's ``Decoder`` and CLI loads neither."""
+decode through the port's ``Decoder`` and CLI, and a stream authored by
+its ``build_fixture_stream`` and decoded, load neither."""
 
 from __future__ import annotations
 
@@ -80,10 +81,13 @@ def test_scan_catches_every_form():
 
 def test_decode_loads_neither_jax_nor_the_jax_package(tmp_path):
     """The committed stream through ``Decoder`` and through the CLI on
-    the CPU, in a fresh interpreter: afterwards ``sys.modules`` holds no
-    jax module and no ``tpu_vpcc`` module."""
+    the CPU, then the same stream authored anew by the port's
+    ``build_fixture_stream`` with the video store in place of libx265 and
+    decoded under the store, in a fresh interpreter: afterwards
+    ``sys.modules`` holds no jax module and no ``tpu_vpcc`` module."""
     script = f"""
 import runpy, sys
+import numpy as np
 from tpu_vpcc_torch import Decoder, Params
 dec = Decoder(Params({str(VERIFY_STREAM)!r}, device="cpu"))
 dec.start()
@@ -94,6 +98,23 @@ try:
     runpy.run_module("tpu_vpcc_torch.runtime.cli", run_name="__main__")
 except SystemExit as e:
     assert e.code == 0, e.code
+from tpu_vpcc_torch.tools.video_store import VideoStore, served, served_encode
+from tpu_vpcc_torch.utils.fixtures import build_fixture_stream
+from tpu_vpcc_torch.utils.synthetic import make_synthetic_frame
+store = VideoStore()
+rng = np.random.default_rng(123)
+frames = [make_synthetic_frame(rng, width=64, height=64,
+                               occupancy_resolution=16,
+                               occupancy_precision=4, n_patches=3,
+                               frame_index=i) for i in range(2)]
+with served_encode(store):
+    stream = build_fixture_stream(frames)
+assert stream == open({str(VERIFY_STREAM)!r}, "rb").read()
+with served(store):
+    dec = Decoder(Params(stream, device="cpu"))
+    dec.start()
+    assert [len(f) for f in dec] == [1112, 962]
+assert store.encode_hits == 3 and store.hits > 0
 bad = sorted(m for m in sys.modules
              if m.startswith("jax") or m.split(".")[0] == "tpu_vpcc")
 print("LOADED", bad)

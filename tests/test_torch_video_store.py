@@ -1,8 +1,11 @@
 """The committed video store (``tpu_vpcc_torch/tools/video_store.py``,
 ``tests/data/video_store/``): every fixture family of
-``test_torch_e2e.STREAMS`` and one 1280^2 lossy stream, each with the
-frames the native libavcodec bridge decoded from its HEVC sub-bitstreams
-and the SHA-256 of the PLY files ``tpu_vpcc``'s CLI writes.
+``test_torch_e2e.STREAMS``, one 1280^2 lossy stream and the stream of
+``examples/roundtrip.py``, each with the frames the native libavcodec
+bridge decoded from its HEVC sub-bitstreams and the SHA-256 of the PLY
+files ``tpu_vpcc``'s CLI writes; and the ``encoded`` table, by which the
+port's ``build_fixture_stream`` rebuilds every stream without libx265
+(``tests/test_torch_encoder.py``).
 
 On the CPU, every entry decodes under ``served`` through the port's CLI
 (device path and oracle) to its manifest's digests and kernel wrapper
@@ -11,16 +14,26 @@ calls; where the bridge loads, the bridge gives the stored frames and
 card (``pytest -m cuda``) a narrow, a wide and a gather entry decode
 with ``--device cuda`` to the same digests and kernel launches.
 
-Rebuild the store, on a machine with libavcodec and libx265:
+Rebuild the store, on a machine with libavcodec and libx265 (every
+entry, or the entries named; libx265's output for some inputs differs
+from run to run, so rebuilding an entry may change its stream), then
+record the ``encoded`` table anew (without libx265):
 
-    python tests/test_torch_video_store.py --write
+    python tests/test_torch_video_store.py --write [NAME ...]
+
+Record the ``encoded`` table alone, anywhere (no libavcodec needed):
+
+    python tests/test_torch_video_store.py --record
 """
 
 import hashlib
+import importlib
 import json
 import re
+import runpy
 import shutil
 import sys
+import tempfile
 import threading
 from contextlib import contextmanager
 from pathlib import Path
@@ -35,26 +48,34 @@ from tpu_vpcc_torch.ops.tiled import native_pack_available
 from tpu_vpcc_torch.runtime import cli as port_cli
 from tpu_vpcc_torch.runtime import pipeline
 from tpu_vpcc_torch.tools.video_store import (
+    FLAGSHIP_BUILD,
     KERNELS,
     MANIFEST,
     STORE_DIR,
     StoreMiss,
     VideoStore,
+    annexb,
+    flagship_frames,
+    record_encoded,
     recording,
     served,
+    video_units,
     write_entry,
     write_manifest,
 )
 
 ROOT = Path(__file__).resolve().parent.parent
 FLAGSHIP = "flagship_1280_q8"
-#: the store's entries: ``test_torch_e2e.STREAMS`` and the 1280^2 stream
+#: the stream of ``examples/roundtrip.py``
+ROUNDTRIP = "roundtrip"
+#: the store's entries: ``test_torch_e2e.STREAMS``, the 1280^2 stream and
+#: the roundtrip example's
 NAMES = (
     "atlas_hash", "aux_raw", "chroma422", "multi_tile_aux",
     "pixel_interleave", "plr", "proj45", "proj45_three_maps",
     "raw_eom_secondary", "rotated", "rotated_smoothing_secondary",
     "rotated_three_maps", "smoothing", "smoothing_secondary", "three_maps",
-    "verify", "vui", FLAGSHIP,
+    "verify", "vui", FLAGSHIP, ROUNDTRIP,
 )
 #: a narrow (K1), a wide (K2W, K1F) and a gather (K1F) entry
 ON_CARD = ("verify", "smoothing", "rotated")
@@ -68,7 +89,7 @@ FLAG_OF = {
     "apply_occupancy_synthesis_type": "--apply-occupancy-synthesis",
 }
 #: the store's size limit, bytes
-MAX_STORE_BYTES = 6 * 2 ** 20
+MAX_STORE_BYTES = 12 * 2 ** 20
 
 
 @pytest.fixture(scope="module")
@@ -128,8 +149,8 @@ def wrapper_calls():
 
 
 def test_manifest_lists_every_entry(store):
-    """The 18 entries, each with outputs, decoded results and its kernel
-    path; the multi-stream run; the whole store under 6 MiB."""
+    """The 19 entries, each with outputs, decoded results and its kernel
+    path; the multi-stream run; the whole store under 12 MiB."""
     assert tuple(sorted(store.entries)) == tuple(sorted(NAMES))
     for name, e in store.entries.items():
         assert e.stream.is_file(), name
@@ -146,6 +167,10 @@ def test_manifest_lists_every_entry(store):
     flagship = store.entries[FLAGSHIP]
     assert flagship.launches["K1"] > 0 and flagship.launches["K1F"] == 0
     assert min(o["points"] for o in flagship.outputs) > 900_000
+    roundtrip = store.entries[ROUNDTRIP]
+    assert [o["name"] for o in roundtrip.outputs] == [
+        f"{i:04d}.ply" for i in range(4)]
+    assert roundtrip.launches["K1"] > 0
     assert store.multi == {"entries": list(MULTI), "flags": SMOOTHING_FLAGS}
     size = sum(p.stat().st_size for p in STORE_DIR.iterdir())
     assert size < MAX_STORE_BYTES, size
@@ -312,74 +337,117 @@ def test_entry_on_card(name, store, tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def _block_constant(plane, block):
-    """Each ``block`` x ``block`` block of ``plane`` set to its top-left
-    sample."""
-    h, w = plane.shape
-    corners = plane[::block, ::block]
-    return np.repeat(np.repeat(corners, block, 0), block, 1)[:h, :w].copy()
+def reference_roundtrip(out_dir) -> bytes:
+    """Run ``examples/roundtrip.py`` into ``out_dir`` (synthesis, its
+    encoder, ``tpu_vpcc``'s decode, PLY files); its stream."""
+    argv = sys.argv
+    sys.argv = [str(ROOT / "examples" / "roundtrip.py"), str(out_dir)]
+    try:
+        runpy.run_path(sys.argv[0], run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+    finally:
+        sys.argv = argv
+    return (Path(out_dir) / "stream.bin").read_bytes()
 
 
-def flagship_stream() -> bytes:
-    """Two 1280^2 frames of 48 patches (two maps, resolution 16,
-    precision 4), their geometry block-constant at 16x16 and their
-    attributes at 16x16 in luma and 8x8 in chroma, coded lossy at qp 8."""
-    from tpu_vpcc.utils.fixtures import build_fixture_stream
-    from tpu_vpcc.utils.synthetic import make_synthetic_frame
+def recipe(name: str, package: str) -> bytes:
+    """Entry ``name``'s stream as ``package`` (``"tpu_vpcc"`` or
+    ``"tpu_vpcc_torch"``) builds it with its own ``build_fixture_stream``
+    (and so with whatever its ``utils.fixtures.encode_yuv420`` is): a
+    family of ``test_torch_e2e.RECIPES`` under ``built_with(package)``,
+    ``flagship_1280_q8`` from ``flagship_frames`` on the package's scene
+    generator, and ``roundtrip`` by the package's roundtrip example (for
+    ``tpu_vpcc``, ``examples/roundtrip.py`` run whole)."""
+    from test_torch_e2e import RECIPES, built_with
 
-    rng = np.random.default_rng(0)
-    frames = []
-    for i in range(2):
-        sf = make_synthetic_frame(
-            rng, width=1280, height=1280, occupancy_resolution=16,
-            occupancy_precision=4, map_count=2, n_patches=48,
-            occupancy_fill=0.7, frame_index=i,
-        )
-        sf.geo_planes = [_block_constant(p, 16) for p in sf.geo_planes]
-        sf.attr_planes = [
-            [_block_constant(y, 16), _block_constant(u, 8),
-             _block_constant(v, 8)]
-            for y, u, v in sf.attr_planes
-        ]
-        frames.append(sf)
-    return build_fixture_stream(frames, lossless=False, qp=8)
+    if name == ROUNDTRIP and package == "tpu_vpcc":
+        with tempfile.TemporaryDirectory() as tmp:
+            return reference_roundtrip(tmp)
+    fixtures = importlib.import_module(f"{package}.utils.fixtures")
+    if name == ROUNDTRIP:
+        from tpu_vpcc_torch.examples.roundtrip import scene
+
+        return fixtures.build_fixture_stream(scene())
+    if name == FLAGSHIP:
+        synthetic = importlib.import_module(f"{package}.utils.synthetic")
+        return fixtures.build_fixture_stream(
+            flagship_frames(synthetic.make_synthetic_frame), **FLAGSHIP_BUILD)
+    with built_with(package):
+        return RECIPES[name]()
 
 
-def build_store(root) -> None:
-    """Encode every entry, decode it with ``tpu_vpcc``'s CLI (its digests)
-    and oracle, and with the port's ``Decoder`` on the CPU, oracle and
-    CLI under :func:`recording`; write the entries, then run the
-    several-``-i`` CLI (whose decoded results the entries must already
-    hold) and write the manifest."""
-    import tempfile
+def record_store(root, entries: dict) -> dict:
+    """The ``encoded`` table of the entries (manifest records by name):
+    each entry's table from ``record_encoded`` on the port's recipe and
+    the entry's committed stream, merged. A key that two entries share
+    must stand for the same sub-bitstream in both."""
+    root = Path(root)
+    encoded = {}
+    for name in NAMES:
+        stream = (root / entries[name]["stream"]).read_bytes()
+        table = record_encoded(
+            name, stream, lambda: recipe(name, "tpu_vpcc_torch"))
+        for key, where in table.items():
+            first = encoded.setdefault(key, where)
+            if first is not where:
+                held = (root / entries[first["entry"]]["stream"]).read_bytes()
+                assert annexb(video_units(held)[first["unit"]]) == \
+                    annexb(video_units(stream)[where["unit"]]), (name, key)
+        print(f"{name}: {len(table)} encodes rebuild the stream")
+    return encoded
 
-    from test_torch_e2e import STREAM_PARAMS, STREAMS, VERIFY_STREAM
+
+def build_store(root, names=NAMES) -> None:
+    """Encode the entries ``names`` (an entry not named keeps its files
+    and manifest record), decode each with ``tpu_vpcc``'s CLI (its
+    digests) and oracle, and with the port's ``Decoder`` on the CPU,
+    oracle and CLI under :func:`recording`; write the entries, then run
+    the several-``-i`` CLI (whose decoded results the entries must
+    already hold), record the ``encoded`` table and write the
+    manifest."""
+    from test_torch_e2e import STREAM_PARAMS, VERIFY_STREAM
     from tpu_vpcc.runtime import cli as ref_cli
     from tpu_vpcc_torch.runtime.pipeline import Decoder, Params
     from tpu_vpcc_torch.utils.ply import format_ply
 
-    assert set(STREAMS) | {FLAGSHIP} == set(NAMES), sorted(STREAMS)
-    streams = dict(STREAMS, **{FLAGSHIP: flagship_stream})
+    assert set(names) <= set(NAMES), sorted(set(names) - set(NAMES))
     root = Path(root)
     root.mkdir(parents=True, exist_ok=True)
-    for old in (*root.glob("*.v3c"), *root.glob("*.npz"), root / MANIFEST):
-        old.unlink(missing_ok=True)
-    entries = {}
-    written = {}
+    entries, written = {}, {}
+    if (root / MANIFEST).is_file():
+        kept = {n: e for n, e in
+                json.loads((root / MANIFEST).read_text())["entries"].items()
+                if n not in names}
+        for n, e in kept.items():
+            held = {c["npz"] for c in e["calls"]}
+            assert held <= set(kept), \
+                f"{n} reads {held}: rebuild them together"
+            written.update((c["key"], c) for c in e["calls"])
+        entries.update(kept)
+    for name in names:
+        for old in (root / f"{name}.v3c", root / f"{name}.npz"):
+            old.unlink(missing_ok=True)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        for name in NAMES:
+        for name in names:
             params = STREAM_PARAMS.get(name, {})
             flags = [FLAG_OF[k] for k, v in params.items() if v]
+            src = tmp / f"{name}.v3c"
             if name == "verify":
-                stream = src = VERIFY_STREAM
+                stream = VERIFY_STREAM
+                shutil.copy(VERIFY_STREAM, src)
+            elif name == ROUNDTRIP:
+                stream = reference_roundtrip(tmp / "roundtrip_example")
+                src.write_bytes(stream)
             else:
-                stream = streams[name]()
-                src = tmp / f"{name}.v3c"
+                stream = recipe(name, "tpu_vpcc")
                 src.write_bytes(stream)
             ref = cli_outputs(ref_cli.main, src, tmp / name / "ref", flags)
             assert cli_outputs(ref_cli.main, src, tmp / name / "ref_oracle",
                                ["--oracle", *flags]) == ref, name
+            if name == ROUNDTRIP:
+                assert outputs_of(tmp / "roundtrip_example") == ref, name
             calls = {}
             with recording(calls):
                 with wrapper_calls() as launches:
@@ -402,9 +470,10 @@ def build_store(root) -> None:
                   f"{[o['points'] for o in ref]} points, "
                   f"{len(calls)} decoded results, launches {dict(launches)}")
         multi_dir = tmp / "multi"
-        paths = [tmp / f"{n}.v3c" for n in MULTI]
-        paths[MULTI.index("verify")] = tmp / "verify.v3c"
-        shutil.copy(VERIFY_STREAM, tmp / "verify.v3c")
+        paths = [tmp / "multi_in" / f"{n}.v3c" for n in MULTI]
+        paths[0].parent.mkdir()
+        for n, path in zip(MULTI, paths):
+            shutil.copy(root / entries[n]["stream"], path)
         calls = {}
         with recording(calls):
             assert port_cli.main(
@@ -414,8 +483,10 @@ def build_store(root) -> None:
         assert set(calls) <= set(written), set(calls) - set(written)
         for n in MULTI:
             assert outputs_of(multi_dir / n) == entries[n]["outputs"], n
+    entries = {n: entries[n] for n in NAMES}
     write_manifest(root, entries, {"entries": list(MULTI),
-                                   "flags": SMOOTHING_FLAGS})
+                                   "flags": SMOOTHING_FLAGS},
+                   record_store(root, entries))
     sizes = {p.name: p.stat().st_size for p in sorted(root.iterdir())}
     for n, s in sizes.items():
         print(f"{n}: {s} bytes")
@@ -424,13 +495,25 @@ def build_store(root) -> None:
     assert total < MAX_STORE_BYTES, total
 
 
+def record_manifest(root) -> None:
+    """Record the ``encoded`` table of the store at ``root`` anew and
+    write it into its manifest; needs no libavcodec or libx265."""
+    manifest = json.loads((Path(root) / MANIFEST).read_text())
+    write_manifest(root, manifest["entries"], manifest["multi"],
+                   record_store(root, manifest["entries"]))
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] != ["--write"]:
-        sys.exit("usage: python tests/test_torch_video_store.py --write [DIR]")
+    if sys.argv[1:2] not in (["--write"], ["--record"]):
+        sys.exit("usage: python tests/test_torch_video_store.py "
+                 "--write [NAME ...] | --record")
     import os
 
     os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    build_store(sys.argv[2] if len(sys.argv) > 2 else STORE_DIR)
+    if sys.argv[1] == "--record":
+        record_manifest(STORE_DIR)
+    else:
+        build_store(STORE_DIR, tuple(sys.argv[2:]) or NAMES)

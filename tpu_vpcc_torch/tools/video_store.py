@@ -32,6 +32,20 @@ kernel wrapper (K1 ``shift_compact_ops``, K2W ``wide_words``, K1F
 entries are written with :func:`recording`, :func:`write_entry` and
 :func:`write_manifest` (``python tests/test_torch_video_store.py
 --write``, on a machine with libavcodec and libx265).
+
+The same store serves the encode side. :func:`served_encode` puts a
+lookup in place of the HEVC encoder of ``build_fixture_stream``
+(``utils.fixtures.encode_yuv420``), so that the port rebuilds the
+store's streams where libx265 is absent:
+
+    with served_encode(store):
+        stream = build_fixture_stream(flagship_frames(), **FLAGSHIP_BUILD)
+
+Each encode is keyed by :func:`encode_key` (the input planes and the
+call's arguments); the manifest's ``encoded`` table maps the key to an
+entry and the index of one of its stream's video units, and the lookup
+returns that sub-bitstream as Annex-B bytes. :func:`record_encoded`
+finds the table without an encoder.
 """
 
 from __future__ import annotations
@@ -44,20 +58,28 @@ import zipfile
 from contextlib import contextmanager
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 import numpy as np
 
+from ..bitio import Bitstream
+from ..v3c.stream import SampleStreamV3CUnit
+from ..v3c.syntax import V3CUnitType
 from ..video.codec import VideoFrame
 
 STORE_DIR = Path(__file__).resolve().parents[2] / "tests" / "data" / "video_store"
 MANIFEST = "manifest.json"
 #: the kernel wrappers whose calls an entry's manifest counts
 KERNELS = ("K1", "K2W", "K1F")
+#: the video units of a V3C stream, whose payloads are HEVC sub-bitstreams
+VIDEO_UNITS = (V3CUnitType.OVD, V3CUnitType.GVD, V3CUnitType.AVD)
+#: how ``flagship_1280_q8`` codes :func:`flagship_frames`
+FLAGSHIP_BUILD = {"lossless": False, "qp": 8}
 
 
 class StoreMiss(LookupError):
-    """A ``decompress_video`` call whose key the store does not hold."""
+    """A ``decompress_video`` or ``encode_yuv420`` call whose key the
+    store does not hold."""
 
 
 def video_key(data, codec_id: int, bytestream_video_coder: bool = True,
@@ -65,6 +87,44 @@ def video_key(data, codec_id: int, bytestream_video_coder: bool = True,
     """The store's key of one ``decompress_video`` call."""
     digest = hashlib.sha256(bytes(data)).hexdigest()
     return f"{digest}:{int(codec_id)}:{int(bool(bytestream_video_coder))}:{int(tile)}"
+
+
+def encode_key(frames, bit_depth: int = 8, lossless: bool = True,
+               gop: int = 32, qp: int = 20, chroma444: bool = False,
+               chroma422: bool = False) -> str:
+    """The store's key of one ``encode_yuv420`` call (the same arguments,
+    the same defaults): the SHA-256 of every input plane's dtype, shape
+    and bytes, in order, and of the call's arguments."""
+    h = hashlib.sha256()
+    for planes in frames:
+        for plane in planes:
+            a = np.ascontiguousarray(plane)
+            h.update(f"{a.dtype.str}{a.shape};".encode())
+            h.update(a.tobytes())
+    h.update(json.dumps([int(bit_depth), bool(lossless), int(gop), int(qp),
+                         bool(chroma444), bool(chroma422)]).encode())
+    return h.hexdigest()
+
+
+def video_units(stream: bytes) -> List[bytes]:
+    """The payloads of the stream's video units (:data:`VIDEO_UNITS`), in
+    stream order: each a sub-bitstream of length-prefixed NAL units."""
+    ssvu = SampleStreamV3CUnit.from_bitstream(Bitstream(bytes(stream)))
+    return [u.data[4:] for u in ssvu.units if u.unit_type in VIDEO_UNITS]
+
+
+def annexb(sub_bitstream: bytes, precision: int = 4) -> bytes:
+    """The sub-bitstream's NAL units, each behind a 4-byte start code:
+    the Annex-B bytes that ``v3c.writer.annexb_to_length_prefixed`` turns
+    back into ``sub_bitstream``."""
+    out = bytearray()
+    i = 0
+    while i < len(sub_bitstream):
+        n = int.from_bytes(sub_bitstream[i:i + precision], "big")
+        i += precision
+        out += b"\x00\x00\x00\x01" + sub_bitstream[i:i + n]
+        i += n
+    return bytes(out)
 
 
 def _frame_meta(f: VideoFrame) -> dict:
@@ -114,10 +174,16 @@ class VideoStore:
             )
             for call in e["calls"]:
                 self._index[call["key"]] = call
+        #: per ``encode_yuv420`` key: ``{"entry", "unit"}``, the entry
+        #: whose stream holds the sub-bitstream and its video unit index
+        self.encoded: Dict[str, dict] = manifest.get("encoded", {})
         self._arrays: Dict[str, dict] = {}
+        self._units: Dict[str, List[bytes]] = {}
         self._lock = threading.Lock()
         #: lookups served
         self.hits = 0
+        #: encodes served
+        self.encode_hits = 0
 
     def _arrays_of(self, npz: str) -> dict:
         with self._lock:
@@ -157,6 +223,32 @@ class VideoStore:
             self.hits += 1
         return frames
 
+    def encoded_bitstream(self, key: str) -> bytes:
+        """The Annex-B bytes of the sub-bitstream that the encode keyed
+        ``key`` became in its entry's stream. Raises :class:`StoreMiss`."""
+        try:
+            where = self.encoded[key]
+        except KeyError:
+            raise StoreMiss(
+                f"the video store {self.root} holds no encode {key} "
+                f"(sha256 of the planes and arguments)"
+            ) from None
+        name = where["entry"]
+        with self._lock:
+            if name not in self._units:
+                self._units[name] = video_units(
+                    self.entries[name].stream.read_bytes())
+            units = self._units[name]
+        return annexb(units[where["unit"]])
+
+    def encode(self, frames, *args, **kw) -> bytes:
+        """``encode_yuv420``'s result for these arguments (its own), from
+        :meth:`encoded_bitstream`; counted in :attr:`encode_hits`."""
+        data = self.encoded_bitstream(encode_key(frames, *args, **kw))
+        with self._lock:
+            self.encode_hits += 1
+        return data
+
 
 @contextmanager
 def served(store: VideoStore):
@@ -171,6 +263,114 @@ def served(store: VideoStore):
         yield store
     finally:
         pipeline.decompress_video = original
+
+
+@contextmanager
+def _encoder(encode: Callable[..., bytes]):
+    """``encode`` in place of the HEVC encoder of ``build_fixture_stream``
+    (``utils.fixtures.encode_yuv420``, the name it calls) while
+    open; restored on exit, on error too."""
+    from ..utils import fixtures
+
+    original = fixtures.encode_yuv420
+    fixtures.encode_yuv420 = encode
+    try:
+        yield
+    finally:
+        fixtures.encode_yuv420 = original
+
+
+@contextmanager
+def served_encode(store: VideoStore):
+    """Build fixture streams with ``store`` in place of libx265: swaps
+    ``utils.fixtures.encode_yuv420`` for :meth:`VideoStore.encode` (a
+    missing key raises :class:`StoreMiss`; nothing falls through to the
+    bridge) and restores it on exit, on error too."""
+    with _encoder(store.encode):
+        yield store
+
+
+def record_encoded(name: str, stream: bytes,
+                   build: Callable[[], bytes]) -> Dict[str, dict]:
+    """The ``encoded`` table of entry ``name``, found without an encoder:
+    ``build()``, the entry's recipe through the port's
+    ``build_fixture_stream``, runs twice. In the first run the n-th encode
+    returns a marker sub-bitstream, which shows the video unit of the
+    stream that the call becomes (``build_fixture_stream`` writes the
+    occupancy video first but encodes it after the others). In the
+    second each encode
+    returns that unit of ``stream``, the committed bytes, and the rebuilt
+    stream must equal ``stream`` byte for byte, which proves the table.
+    Raises ``ValueError`` where a unit is no single call's or the
+    streams differ."""
+    keys: List[str] = []
+
+    def marker(frames, *args, **kw):
+        keys.append(encode_key(frames, *args, **kw))
+        return marker_unit(len(keys) - 1)
+
+    with _encoder(marker):
+        probe = build()
+    calls = {annexb(u): k for k, u in enumerate(video_units(probe))}
+    markers = [marker_unit(n) for n in range(len(keys))]
+    if sorted(calls) != sorted(markers):
+        raise ValueError(f"{name}: the video units of the stream are not "
+                         f"its {len(keys)} encodes, one each")
+    table = {}
+    for n, key in enumerate(keys):
+        table.setdefault(key, {"entry": name, "unit": calls[markers[n]]})
+    units = video_units(stream)
+
+    def committed(frames, *args, **kw):
+        return annexb(units[table[encode_key(frames, *args, **kw)]["unit"]])
+
+    with _encoder(committed):
+        rebuilt = build()
+    if rebuilt != bytes(stream):
+        raise ValueError(f"{name}: the stream rebuilt from the committed "
+                         f"sub-bitstreams differs from the committed one")
+    return table
+
+
+def marker_unit(n: int) -> bytes:
+    """The Annex-B bytes of :func:`record_encoded`'s n-th marker."""
+    return b"\x00\x00\x00\x01" + f"encode {n:08d}".encode()
+
+
+def block_constant(plane: np.ndarray, block: int) -> np.ndarray:
+    """Each ``block`` x ``block`` block of ``plane`` set to its top-left
+    sample."""
+    h, w = plane.shape
+    corners = plane[::block, ::block]
+    return np.repeat(np.repeat(corners, block, 0), block, 1)[:h, :w].copy()
+
+
+def flagship_frames(make_synthetic_frame=None) -> list:
+    """The frames of ``flagship_1280_q8``, which codes them with
+    :data:`FLAGSHIP_BUILD`: two 1280^2 frames of 48 patches (two maps,
+    resolution 16, precision 4, fill 0.7, one generator seeded 0), their
+    geometry block-constant at 16x16 and their attributes at 16x16 in
+    luma and 8x8 in chroma. ``make_synthetic_frame``: the scene generator,
+    by default the port's ``utils.synthetic.make_synthetic_frame``."""
+    if make_synthetic_frame is None:
+        from ..utils.synthetic import make_synthetic_frame
+
+    rng = np.random.default_rng(0)
+    frames = []
+    for i in range(2):
+        sf = make_synthetic_frame(
+            rng, width=1280, height=1280, occupancy_resolution=16,
+            occupancy_precision=4, map_count=2, n_patches=48,
+            occupancy_fill=0.7, frame_index=i,
+        )
+        sf.geo_planes = [block_constant(p, 16) for p in sf.geo_planes]
+        sf.attr_planes = [
+            [block_constant(y, 16), block_constant(u, 8),
+             block_constant(v, 8)]
+            for y, u, v in sf.attr_planes
+        ]
+        frames.append(sf)
+    return frames
 
 
 @contextmanager
@@ -237,8 +437,10 @@ def write_entry(root, name: str, stream, calls: Dict[str, List[VideoFrame]],
                 calls=[written[key] for key in sorted(calls)])
 
 
-def write_manifest(root, entries: Dict[str, dict], multi: dict) -> None:
-    (Path(root) / MANIFEST).write_text(
-        json.dumps({"entries": entries, "multi": multi}, indent=1) + "\n")
+def write_manifest(root, entries: Dict[str, dict], multi: dict,
+                   encoded: Dict[str, dict]) -> None:
+    (Path(root) / MANIFEST).write_text(json.dumps(
+        {"entries": entries, "multi": multi, "encoded": encoded},
+        indent=1) + "\n")
 
 

@@ -16,7 +16,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from ..atlas.patches import FrameMeta, Patch
+from ..atlas.patches import EomPatch, FrameMeta, Patch, RawPatch
 from ..v3c.syntax import PatchOrientation
 
 
@@ -31,7 +31,7 @@ class SyntheticFrame:
     map_count: int
     # auxiliary raw-patch video planes (framework extension): one
     # luma-only geometry plane + one [y, u, v] attribute set per frame,
-    # (authored by the JAX package's fixture helpers; None here)
+    # authored by plant_raw_patch(aux=...) / plant_eom_patch(aux=...)
     aux_geo_plane: "np.ndarray" = None
     aux_attr_planes: "List[np.ndarray]" = None
 
@@ -126,6 +126,200 @@ def make_synthetic_frame(
         rng, meta, width, height, occupancy_precision, res, map_count,
         occupancy_fill,
     )
+
+
+def ensure_aux_planes(sf: SyntheticFrame, size=(64, 64)) -> None:
+    """Allocate the frame's auxiliary video planes (zeros) if absent:
+    a luma-only geometry plane plus a 4:2:0 attribute set."""
+    if sf.aux_geo_plane is not None:
+        return
+    h, w = size
+    sf.aux_geo_plane = np.zeros((h, w), np.uint16)
+    sf.aux_attr_planes = [
+        np.zeros((h, w), np.uint16),
+        np.zeros((h // 2, w // 2), np.uint16),
+        np.zeros((h // 2, w // 2), np.uint16),
+    ]
+
+
+def plant_raw_patch(
+    rng: np.random.Generator,
+    sf: SyntheticFrame,
+    region_blocks: tuple,
+    n_points: int,
+    offsets: tuple = (0, 0, 0),
+    geo_shift: int = 2,
+    aux: bool = False,
+    aux_size=(64, 64),
+) -> RawPatch:
+    """Author one raw patch on a synthetic frame (framework extension).
+
+    Plants ``3 * n_points`` coordinate samples into the map-0 geometry
+    plane over the region's pixel raster (three consecutive runs: x, y,
+    z — the layout ``reconstruction/raw_points.py`` reads back) and one
+    attribute pixel per point, then appends the :class:`RawPatch` to
+    ``sf.meta.raw_patches``. ``region_blocks`` = (u0, v0, size_u0,
+    size_v0) in block units; the caller keeps it off regular patches.
+    Values are stored MSB-aligned (``<< geo_shift``), so coordinates
+    span ``[0, 2**(10 - geo_shift))`` before the 3D offset. Occupancy
+    over the used pixels is set to 1 (as a real encoder would) — the
+    decoder must ignore occupied blocks no patch owns.
+    """
+    u0, v0, su0, sv0 = region_blocks
+    res = sf.occupancy_resolution
+    x0, y0, w, h = u0 * res, v0 * res, su0 * res, sv0 * res
+    assert 3 * n_points <= w * h, "region too small"
+    cmax = 1 << (10 - geo_shift)
+    coords = rng.integers(0, cmax, (3, n_points)).astype(np.uint16)
+
+    if aux:
+        # auxiliary-video raw patch (framework extension): runs and
+        # colors live in the aux planes, region coords relative to the
+        # aux video origin; the MAIN canvas/occupancy stay untouched
+        ensure_aux_planes(sf, aux_size)
+        geo = sf.aux_geo_plane
+        assert y0 + h <= geo.shape[0] and x0 + w <= geo.shape[1], (
+            "aux region leaves the aux video"
+        )
+    else:
+        geo = sf.geo_planes[0]
+    flat = coords.reshape(-1) << geo_shift  # [x run | y run | z run]
+    idx = np.arange(3 * n_points)
+    px, py = x0 + idx % w, y0 + idx // w
+    geo[py, px] = flat
+    if not aux:
+        # occupancy 1 over every used geometry/attribute pixel
+        prec = sf.occupancy_precision
+        sf.occ_plane[py // prec, px // prec] = 1
+
+    ay, au, av = (
+        sf.aux_attr_planes if aux else sf.attr_planes[0]
+    )
+    csh = 0 if au.shape == ay.shape else 1
+    pxa, pya = px[:n_points], py[:n_points]
+    ay[pya, pxa] = rng.integers(0, 1024, n_points).astype(np.uint16)
+    au[pya >> csh, pxa >> csh] = rng.integers(0, 1024, n_points).astype(
+        np.uint16
+    )
+    av[pya >> csh, pxa >> csh] = rng.integers(0, 1024, n_points).astype(
+        np.uint16
+    )
+
+    rp = RawPatch(
+        u0=u0, v0=v0, size_u0=su0, size_v0=sv0,
+        u1=offsets[0], v1=offsets[1], d1=offsets[2],
+        n_points=n_points, occupancy_resolution=res,
+        in_aux_video=aux,
+    )
+    sf.meta.raw_patches.append(rp)
+    return rp
+
+
+def plant_eom_patch(
+    rng: np.random.Generator,
+    sf: SyntheticFrame,
+    region_blocks: tuple,
+    member_patch_indices: List[int],
+    eom_fraction: float = 0.5,
+    geo_shift: int = 2,
+    max_bits: int = 3,
+    aux: bool = False,
+    aux_size=(64, 64),
+) -> EomPatch:
+    """Author one EOM patch on a synthetic frame (framework extension).
+
+    For each member patch, a random ``eom_fraction`` of its occupied
+    pixels with surface thickness ≥ 2 get an in-between point pattern
+    written into the occupancy plane as ``pattern + 1`` (the codeword
+    convention ``reconstruction/eom_points.py`` reads back: codeword =
+    occupancy value − 1, bit j → a point at depth d0 + j + 1, strictly
+    between the pixel's D0 and D1). One attribute pixel per EOM point
+    is planted over the region's raster, and the :class:`EomPatch`
+    (with the per-member counts) appends to ``sf.meta.eom_patches``.
+
+    Requires ``occupancy_precision == 1`` (per-pixel codewords).
+    Two-map frames bound the pattern by the D0..D1 gap; single-map
+    frames (no D1 surface) use ``max_bits`` codeword bits — the fixed
+    bit count the ASPS codes as ``asps_eom_fix_bit_count_minus1 + 1``.
+    ``region_blocks`` = (u0, v0, size_u0, size_v0) in block units; the
+    caller keeps it off regular patches.
+    """
+    assert sf.occupancy_precision == 1, "EOM needs per-pixel occupancy"
+    u0r, v0r, su0, sv0 = region_blocks
+    res = sf.occupancy_resolution
+    width, height = sf.meta.width, sf.meta.height
+    geo0 = sf.geo_planes[0]
+    geo1 = sf.geo_planes[1] if sf.map_count >= 2 else None
+    remaining = su0 * sv0 * res * res  # attribute capacity of the region
+    counts: List[int] = []
+    for pi in member_patch_indices:
+        patch = sf.meta.patches[pi]
+        n = 0
+        for v0 in range(patch.size_uv0[1]):
+            for u0 in range(patch.size_uv0[0]):
+                for v1 in range(res):
+                    for u1 in range(res):
+                        u, v = u0 * res + u1, v0 * res + v1
+                        x, y = patch.patch_to_canvas(u, v, width, height)
+                        if sf.occ_plane[y, x] == 0:
+                            continue
+                        if geo1 is not None:
+                            d0 = int(geo0[y, x]) >> geo_shift
+                            d1 = int(geo1[y, x]) >> geo_shift
+                            nb = d1 - d0 - 1
+                        else:
+                            nb = max_bits
+                        if nb <= 0 or rng.random() >= eom_fraction:
+                            continue
+                        pattern = int(rng.integers(1, 1 << nb))
+                        bits = bin(pattern).count("1")
+                        if bits > remaining:  # region full — as a real
+                            continue  # encoder, stop adding EOM points
+                        remaining -= bits
+                        sf.occ_plane[y, x] = pattern + 1
+                        n += bits
+        counts.append(n)
+
+    # attribute pixels over the region raster, one per point; occupancy
+    # 1 over the used pixels (as a real encoder would — the decoder must
+    # ignore occupied blocks no patch owns). Aux-flagged patches place
+    # the region in the AUXILIARY attribute video instead (framework
+    # extension): no main-canvas occupancy, coords aux-origin-relative.
+    total = sum(counts)
+    x0, y0, w = u0r * res, v0r * res, su0 * res
+    assert total <= w * sv0 * res, "EOM region too small"
+    if aux:
+        ensure_aux_planes(sf, aux_size)
+        assert (
+            y0 + sv0 * res <= sf.aux_attr_planes[0].shape[0]
+            and x0 + w <= sf.aux_attr_planes[0].shape[1]
+        ), "aux EOM region leaves the aux video"
+    if total:
+        idx = np.arange(total)
+        px, py = x0 + idx % w, y0 + idx // w
+        if aux:
+            ay, au, av = sf.aux_attr_planes
+        else:
+            sf.occ_plane[py, px] = 1
+            ay, au, av = sf.attr_planes[0]
+        csh = 0 if au.shape == ay.shape else 1
+        ay[py, px] = rng.integers(0, 1024, total).astype(np.uint16)
+        au[py >> csh, px >> csh] = rng.integers(0, 1024, total).astype(
+            np.uint16
+        )
+        av[py >> csh, px >> csh] = rng.integers(0, 1024, total).astype(
+            np.uint16
+        )
+
+    ep = EomPatch(
+        u0=u0r, v0=v0r, size_u0=su0, size_v0=sv0,
+        member_patches=list(member_patch_indices),
+        member_points=counts,
+        occupancy_resolution=res,
+        in_aux_video=aux,
+    )
+    sf.meta.eom_patches.append(ep)
+    return ep
 
 
 def _fill_planes(

@@ -1,19 +1,35 @@
-"""The ASPS and AFPS writers of the V3C bitstream writer: the exact
-inverse of their parsers in syntax.py.
+"""V3C bitstream writer — the exact inverse of the parsers in syntax.py.
 
-The decoded-atlas-hash SEI's high-level hash covers the re-serialized
-ASPS/AFPS (``atlas.atlas_hash.high_level_byte_string``); these four
-functions are what that needs of the JAX package's ``v3c/writer.py``,
-copied unchanged.
+The reference is decode-only; this module exists (a) to author synthetic
+conformance fixtures for the test suite (the environment carries no MPEG
+CTC streams), and (b) as a standalone mux capability. Every write mirrors
+the corresponding parse field-for-field, including the reference quirks
+(`byte_align` stop-bit, PTL byte-skips, SEI trailing byte).
 """
 
 from __future__ import annotations
+
+from typing import List, Sequence
 
 from ..bitio import BitWriter
 from .syntax import (
     AtlasFrameParameterSet,
     AtlasSequenceParameterSet,
+    AtlasTileHeader,
+    AtlasTileLayer,
+    InterPatchDataUnit,
+    IntraPatchDataUnit,
+    MergePatchDataUnit,
+    NalUnitType,
+    PatchModeITile,
+    ProfileTierLevel,
+    EomPatchDataUnit,
+    RawPatchDataUnit,
     RefListStruct,
+    SkipPatchDataUnit,
+    TileType,
+    V3CParameterSet,
+    V3CUnitType,
     VuiParameters,
     ceil_log2,
 )
@@ -89,6 +105,81 @@ def write_vui(w: BitWriter, vui: VuiParameters) -> None:
         if vui.anchor_point_present_flag:
             for d in range(3):
                 w.write_uvlc(vui.anchor_point[d])
+
+
+def write_ptl(w: BitWriter, ptl: ProfileTierLevel) -> None:
+    w.write(int(ptl.tier_flag), 1)
+    w.write(ptl.profile_codec_group_idc, 7)
+    w.write(ptl.profile_toolset_idc, 8)
+    w.write(ptl.profile_reconstruction_idc, 8)
+    w.write(0, 32)  # reserved, skipped byte-wise by the reader
+    w.write(ptl.level_idc, 8)
+    w.write(0, 6)  # num_sub_profiles == 0
+    w.write(int(ptl.extended_sub_profile_flag), 1)
+    w.write(0, 1)  # tool_constraints_present_flag == 0
+
+
+def write_vps(vps: V3CParameterSet) -> bytes:
+    """Serialize a VPS payload (inverse of ``V3CParameterSet.parse``)."""
+    w = BitWriter()
+    write_ptl(w, vps.profile_tier_level)
+    w.write(vps.v3c_parameter_set_id, 4)
+    w.write(0, 8)  # reserved
+    w.write(vps.atlas_count_minus1, 6)
+    w.write(vps.atlas_id, 6)
+    w.write_uvlc(vps.frame_width)
+    w.write_uvlc(vps.frame_height)
+    w.write(vps.map_count_minus1, 4)
+    if vps.map_count_minus1 > 0:
+        w.write(int(vps.multiple_map_streams_present_flag), 1)
+    for k in range(1, vps.map_count_minus1 + 1):
+        if vps.multiple_map_streams_present_flag:
+            w.write(int(vps.map_absolute_coding_enable_flag[k]), 1)
+        if not vps.map_absolute_coding_enable_flag[k]:
+            w.write_uvlc(int(vps.map_predictor_index_diff[k]))
+    w.write(int(vps.auxiliary_video_present_flag), 1)
+    w.write(int(vps.occupancy_video_present_flag), 1)
+    w.write(int(vps.geometry_video_present_flag), 1)
+    w.write(int(vps.attribute_video_present_flag), 1)
+    if vps.occupancy_video_present_flag:
+        oi = vps.occupancy_information
+        w.write(oi.occupancy_codec_id, 8)
+        w.write(oi.occupancy_lossy_compression_threshold, 8)
+        w.write(oi.occupancy_2d_bitdepth_minus1, 5)
+        w.write(int(oi.occupancy_msb_align_flag), 1)
+    if vps.geometry_video_present_flag:
+        gi = vps.geometry_information
+        w.write(gi.geometry_codec_id, 8)
+        w.write(gi.geometry_2d_bitdepth_minus1, 5)
+        w.write(int(gi.geometry_msb_align_flag), 1)
+        w.write(gi.geometry_3d_coordinates_bitdepth_minus1, 5)
+        if vps.auxiliary_video_present_flag:
+            w.write(gi.auxiliary_geometry_codec_id, 8)
+    if vps.attribute_video_present_flag:
+        ai = vps.attribute_information
+        w.write(ai.attribute_count, 7)
+        for i in range(ai.attribute_count):
+            w.write(ai.attribute_type_id[i], 4)
+            w.write(ai.attribute_codec_id[i], 8)
+            if vps.auxiliary_video_present_flag:
+                w.write(ai.auxiliary_attribute_codec_id[i], 8)
+            if vps.map_count_minus1 > 0:
+                w.write(int(ai.attribute_map_absolute_coding_persistence_flag[i]), 1)
+            w.write(ai.attribute_dimension_minus1[i], 6)
+            if ai.attribute_dimension_minus1[i] > 0:
+                w.write(ai.attribute_dimension_partitions_minus1[i], 6)
+                remaining = ai.attribute_dimension_minus1[i]
+                k = ai.attribute_dimension_partitions_minus1[i]
+                for j in range(k):
+                    channels = ai.attribute_partition_channels_minus1[i][j]
+                    if k - j != remaining:
+                        w.write_uvlc(channels)
+                    remaining -= channels
+            w.write(ai.attribute_2d_bitdepth_minus1[i], 5)
+            w.write(int(ai.attribute_msb_align_flag[i]), 1)
+    w.write(int(vps.extension_present_flag), 1)
+    w.byte_align()
+    return w.getvalue()
 
 
 def write_ref_list_struct(
@@ -236,3 +327,489 @@ def write_afps(afps: AtlasFrameParameterSet, asps: AtlasSequenceParameterSet) ->
     w.write(int(afps.extension_flag), 1)
     w.byte_align()
     return w.getvalue()
+
+
+def _write_plrd(w: BitWriter, asps, plr_data, block_count: int) -> None:
+    """Serialize 8.3.7.9 plr_data, one per PLR-present map (inverse of
+    ``PlrData.parse``; inter/merge block counts come from the TMC2
+    parse-time size accumulator the caller maintains)."""
+    for plri, d in zip(asps.plr_information, plr_data):
+        if not plri.map_present_flag:
+            continue
+        mode_bits = ceil_log2(plri.number_of_modes)
+        if block_count > plri.block_threshold_per_patch_minus1 + 1:
+            w.write(int(d.level_flag), 1)
+        else:
+            assert d.level_flag, "block-level PLR under threshold"
+        if d.level_flag:
+            w.write(int(d.present_flag), 1)
+            if d.present_flag:
+                w.write(d.mode_minus1, mode_bits)
+        else:
+            for p, m in zip(d.block_present_flag, d.block_mode_minus1):
+                w.write(int(p), 1)
+                if p:
+                    w.write(m, mode_bits)
+
+
+def write_atlas_tile_layer(
+    atl: AtlasTileLayer,
+    asps: AtlasSequenceParameterSet,
+    afps: AtlasFrameParameterSet,
+    nal_unit_type: NalUnitType,
+) -> bytes:
+    """Serialize a tile layer (header + intra patch data units + End)."""
+    ath = atl.header
+    w = BitWriter()
+    if NalUnitType.BLA_W_LP <= nal_unit_type <= NalUnitType.GCRA:
+        w.write(int(ath.no_output_of_prior_atlas_frames_flag), 1)
+    w.write_uvlc(ath.atlas_frame_parameter_set_id)
+    w.write_uvlc(ath.atlas_adaptation_parameter_set_id)
+    afti = afps.atlas_frame_tile_information
+    if afti.signalled_tile_id_flag:
+        w.write(ath.id, afti.signalled_tile_id_length_minus1 + 1)
+    elif afti.num_tiles_in_atlas_frame_minus1 != 0:
+        w.write(ath.id, ceil_log2(afti.num_tiles_in_atlas_frame_minus1 + 1))
+    w.write_uvlc(int(ath.tile_type))
+    if afps.output_flag_present_flag:
+        w.write(int(ath.atlas_output_flag), 1)
+    w.write(
+        ath.atlas_frame_order_count_lsb,
+        asps.log2_max_atlas_frame_order_cnt_lsb_minus_4 + 4,
+    )
+    if asps.num_ref_atlas_frame_lists_in_asps > 0:
+        w.write(int(ath.ref_atlas_frame_list_sps_flag), 1)
+    if not ath.ref_atlas_frame_list_sps_flag:
+        write_ref_list_struct(
+            w,
+            ath.ref_list_struct,
+            asps.long_term_ref_atlas_frames_flag,
+            asps.log2_max_atlas_frame_order_cnt_lsb_minus_4 + 4,
+        )
+    if asps.num_ref_atlas_frame_lists_in_asps > 1:
+        w.write(ath.ref_atlas_frame_list_idx, ceil_log2(asps.num_ref_atlas_frame_lists_in_asps))
+    ref_list = (
+        asps.ref_list_struct[ath.ref_atlas_frame_list_idx]
+        if ath.ref_atlas_frame_list_sps_flag
+        else ath.ref_list_struct
+    )
+    num_ltr = sum(1 for st in ref_list.st_ref_atlas_frame_flag if not st)
+    for j in range(num_ltr):
+        w.write(int(ath.additional_afoc_lsb_present_flag[j]), 1)
+        if ath.additional_afoc_lsb_present_flag[j]:
+            w.write(ath.additional_afoc_lsb_val[j], afps.additional_lt_afoc_lsb_len)
+    if ath.tile_type != TileType.SKIP:
+        if asps.normal_axis_limits_quantization_enabled_flag:
+            w.write(ath.pos_min_d_quantizer, 5)
+            w.write(ath.pos_delta_max_d_quantizer, 5)
+        if asps.patch_size_quantizer_present_flag:
+            w.write(ath.patch_size_info_quantizer[0], 3)
+            w.write(ath.patch_size_info_quantizer[1], 3)
+        if afps.raw_3d_offset_bitcount_explicit_mode_flag:
+            bit_count = (asps.geometry_3d_bitdepth_minus1 + 1).bit_length() - 1
+            w.write(ath.raw_3d_offset_axis_bitcount_minus1, bit_count)
+        if ath.tile_type == TileType.P and ref_list.num_ref_entries > 1:
+            w.write(int(ath.num_ref_idx_active_override_flag), 1)
+            if ath.num_ref_idx_active_override_flag:
+                w.write_uvlc(ath.num_ref_idx_active_minus1)
+    w.byte_align()
+
+    if ath.tile_type == TileType.SKIP:
+        # SKIP tiles carry no patch data, but the rbsp-level byte_align
+        # still runs in the parser (reader.rs:1526-1542) and — per the
+        # TMC2 quirk — consumes a whole stop byte on an aligned cursor
+        w.byte_align()
+        return w.getvalue()
+
+    # num_ref_idx_active (context.rs:234-259), for the inter/merge
+    # ref_index conditional
+    if ath.tile_type == TileType.I:
+        num_ref_idx_active = 0
+    elif ath.num_ref_idx_active_override_flag:
+        num_ref_idx_active = ath.num_ref_idx_active_minus1 + 1
+    else:
+        num_ref_idx_active = min(
+            ref_list.num_ref_entries, afps.num_ref_idx_default_active_minus1 + 1
+        )
+
+    # patch data units
+    bitcount_uv = asps.geometry_3d_bitdepth_minus1 + 1
+    bitcount_d = asps.geometry_3d_bitdepth_minus1 - ath.pos_min_d_quantizer + 1
+    # TMC2 parse-time size accumulator twin (prevPatchSizeU_/V_): the
+    # parser sizes inter/merge plrd from it, so the writer must too
+    plr_prev = [0, 0]
+    for pid in atl.patch_information_data:
+        pdu = pid.patch_data_unit
+        w.write_uvlc(pid.patch_mode)
+        if isinstance(pdu, IntraPatchDataUnit):
+            w.write_uvlc(pdu.pos_2d[0])
+            w.write_uvlc(pdu.pos_2d[1])
+            w.write_uvlc(pdu.size_2d_minus1[0])
+            w.write_uvlc(pdu.size_2d_minus1[1])
+            w.write(pdu.pos_3d_offset[0], bitcount_uv)
+            w.write(pdu.pos_3d_offset[1], bitcount_uv)
+            w.write(pdu.pos_3d_offset_d, bitcount_d)
+            if asps.normal_axis_max_delta_value_enabled_flag:
+                bitcount_max_depth = (
+                    min(asps.geometry_2d_bitdepth_minus1, asps.geometry_3d_bitdepth_minus1)
+                    + 1
+                    - ath.pos_delta_max_d_quantizer
+                )
+                w.write(pdu.pos_3d_range_d, bitcount_max_depth)
+            w.write(pdu.projection_id, ceil_log2(asps.max_number_projections_minus1 + 1))
+            w.write(int(pdu.orientation_index), 3 if asps.use_eight_orientations_flag else 1)
+            if afps.lod_mode_enable_flag:
+                w.write(int(pdu.lod_enabled_flag), 1)
+                if pdu.lod_enabled_flag:
+                    w.write_uvlc(pdu.lod_scale_x_minus1)
+                    w.write_uvlc(pdu.lod_scale_y_idc)
+            plr_prev[0] = pdu.size_2d_minus1[0] + 1
+            plr_prev[1] = pdu.size_2d_minus1[1] + 1
+            if asps.plr_enabled_flag:
+                _write_plrd(
+                    w, asps, pdu.plr_data, plr_prev[0] * plr_prev[1]
+                )
+        elif isinstance(pdu, InterPatchDataUnit):
+            if num_ref_idx_active > 1:
+                w.write_uvlc(pdu.ref_index)
+            w.write_svlc(pdu.ref_patch_index)
+            w.write_svlc(pdu.pos_2d[0])
+            w.write_svlc(pdu.pos_2d[1])
+            w.write_svlc(pdu.delta_2d_size[0])
+            w.write_svlc(pdu.delta_2d_size[1])
+            w.write_svlc(pdu.pos_3d_offset[0])
+            w.write_svlc(pdu.pos_3d_offset[1])
+            w.write_svlc(pdu.pos_3d_offset_d)
+            if asps.normal_axis_max_delta_value_enabled_flag:
+                w.write_svlc(pdu.pos_3d_range_d)
+            plr_prev[0] += pdu.delta_2d_size[0]
+            plr_prev[1] += pdu.delta_2d_size[1]
+            if asps.plr_enabled_flag:
+                _write_plrd(
+                    w, asps, pdu.plr_data, plr_prev[0] * plr_prev[1]
+                )
+        elif isinstance(pdu, MergePatchDataUnit):
+            if num_ref_idx_active > 1:
+                w.write_uvlc(pdu.ref_index)
+            w.write(int(pdu.override_2d_params_flag), 1)
+            if pdu.override_2d_params_flag:
+                w.write_svlc(pdu.pos_2d[0])
+                w.write_svlc(pdu.pos_2d[1])
+                w.write_svlc(pdu.delta_2d_size[0])
+                w.write_svlc(pdu.delta_2d_size[1])
+                if asps.plr_enabled_flag:
+                    w.write(int(pdu.override_plr_flag), 1)
+            else:
+                # the 3d fields are carried even when override_3d is 0,
+                # mirroring the reference parser (reader.rs:2019-2024)
+                w.write(int(pdu.override_3d_params_flag), 1)
+                w.write_svlc(pdu.pos_3d_offset[0])
+                w.write_svlc(pdu.pos_3d_offset[1])
+                w.write_svlc(pdu.pos_3d_offset_d)
+                if asps.normal_axis_max_delta_value_enabled_flag:
+                    # None means "field not representable" only when the
+                    # ASPS disables it; with NAMD on a zero delta is coded
+                    w.write_svlc(pdu.pos_3d_range_d or 0)
+            plr_prev[0] += pdu.delta_2d_size[0]
+            plr_prev[1] += pdu.delta_2d_size[1]
+            if asps.plr_enabled_flag and pdu.override_plr_flag:
+                _write_plrd(
+                    w, asps, pdu.plr_data, plr_prev[0] * plr_prev[1]
+                )
+        elif isinstance(pdu, RawPatchDataUnit):
+            if asps.auxiliary_video_enabled_flag:
+                w.write(int(pdu.patch_in_auxiliary_video_flag), 1)
+            w.write_uvlc(pdu.pos_2d[0])
+            w.write_uvlc(pdu.pos_2d[1])
+            w.write_uvlc(pdu.size_2d_minus1[0])
+            w.write_uvlc(pdu.size_2d_minus1[1])
+            rb = ath.raw_3d_offset_axis_bitcount_minus1 + 1
+            w.write(pdu.pos_3d_offset_u, rb)
+            w.write(pdu.pos_3d_offset_v, rb)
+            w.write(pdu.pos_3d_offset_d, rb)
+            w.write_uvlc(pdu.raw_points_minus1)
+        elif isinstance(pdu, EomPatchDataUnit):
+            if asps.auxiliary_video_enabled_flag:
+                w.write(int(pdu.patch_in_auxiliary_video_flag), 1)
+            w.write_uvlc(pdu.pos_2d[0])
+            w.write_uvlc(pdu.pos_2d[1])
+            w.write_uvlc(pdu.size_2d_minus1[0])
+            w.write_uvlc(pdu.size_2d_minus1[1])
+            w.write_uvlc(len(pdu.associated_patch_idx) - 1)
+            for idx, n in zip(pdu.associated_patch_idx, pdu.points):
+                w.write_uvlc(idx)
+                w.write_uvlc(n)
+        elif isinstance(pdu, SkipPatchDataUnit):
+            pass  # P_SKIP carries no fields
+        else:
+            raise NotImplementedError(f"unsupported patch data unit {type(pdu)}")
+    # End patch mode terminates the unit (value 14 for both I and P tiles)
+    end_mode = int(PatchModeITile.END)
+    w.write_uvlc(end_mode)
+    w.byte_align()
+    return w.getvalue()
+
+
+def write_sei_geometry_smoothing(
+    instances=((0, 1, 2, 3),),  # (instance_index, method_type, grid_size_minus_2, threshold)
+    persistence_flag: bool = False,
+    reset_flag: bool = False,
+) -> bytes:
+    """Serialize a prefix geometry-smoothing SEI payload (inverse of
+    ``SeiGeometrySmoothing.parse`` + the SEI envelope quirks: byte_align
+    followed by one extra trailing byte, ``reader.rs:1414-1417``)."""
+    from .syntax import SeiPayloadType
+
+    w = BitWriter()
+    w.write(int(SeiPayloadType.GEOMETRY_SMOOTHING), 8)
+    w.write(8, 8)  # payload size varint (parsed but unused by the reference)
+    w.write(int(persistence_flag), 1)
+    w.write(int(reset_flag), 1)
+    w.write(len(instances), 8)
+    for (idx, method, grid, threshold) in instances:
+        w.write(idx, 8)
+        w.write(0, 1)  # instance_cancel_flag
+        w.write_uvlc(method)
+        if method == 1:
+            w.write(0, 1)  # filter_eom_points_flag
+            w.write(grid, 7)
+            w.write(threshold, 8)
+    w.byte_align()
+    w.write(0, 8)  # the extra trailing byte the parser consumes
+    return w.getvalue()
+
+
+def write_sei_attribute_smoothing(
+    instances=((0, 0, 1, 2, 0, 10, 10),),
+    # (attribute_idx, instance_index, method_type, grid_size_minus_2,
+    #  threshold, threshold_variation, threshold_difference)
+    persistence_flag: bool = False,
+    reset_flag: bool = False,
+) -> bytes:
+    """Serialize a prefix attribute-smoothing SEI payload (inverse of
+    ``SeiAttributeSmoothing.parse``) — the reference cannot parse this
+    payload; framework extension."""
+    from .syntax import SeiPayloadType
+
+    w = BitWriter()
+    w.write(int(SeiPayloadType.ATTRIBUTE_SMOOTHING), 8)
+    w.write(8, 8)  # payload size varint (unused by the parser)
+    w.write(int(persistence_flag), 1)
+    w.write(int(reset_flag), 1)
+    w.write_uvlc(len(instances))
+    for (aidx, iidx, method, grid, thr, thr_var, thr_diff) in instances:
+        w.write(aidx, 7)
+        w.write(0, 1)  # attribute_smoothing_cancel_flag
+        w.write(1, 8)  # instances_updated
+        w.write(iidx, 8)
+        w.write(0, 1)  # instance_cancel_flag
+        w.write_uvlc(method)
+        if method == 1:
+            w.write(grid, 8)
+            w.write(thr, 8)
+            w.write(thr_var, 8)
+            w.write(thr_diff, 8)
+    w.byte_align()
+    w.write(0, 8)  # the extra trailing byte the parser consumes
+    return w.getvalue()
+
+
+def write_sei_occupancy_synthesis(
+    instances=((0, 1, 1, 0, 2),),
+    # (instance_index, method_type, pbf_log2_threshold_minus1,
+    #  pbf_passes_count_minus1, pbf_filter_size_minus1)
+    persistence_flag: bool = False,
+    reset_flag: bool = False,
+) -> bytes:
+    """Serialize a prefix occupancy-synthesis SEI payload (inverse of
+    ``SeiOccupancySynthesis.parse``)."""
+    from .syntax import SeiPayloadType
+
+    w = BitWriter()
+    w.write(int(SeiPayloadType.OCCUPANCY_SYNTHESIS), 8)
+    w.write(4, 8)  # payload size varint (unused by the parser)
+    w.write(int(persistence_flag), 1)
+    w.write(int(reset_flag), 1)
+    w.write(len(instances), 8)
+    for (idx, method, thr, passes, fsize) in instances:
+        w.write(idx, 8)
+        w.write(0, 1)  # instance_cancel_flag
+        w.write_uvlc(method)
+        if method == 1:
+            w.write(thr, 2)
+            w.write(passes, 2)
+            w.write(fsize, 3)
+    w.byte_align()
+    w.write(0, 8)  # the extra trailing byte the parser consumes
+    return w.getvalue()
+
+
+def write_sei_daih(sei) -> bytes:
+    """H.20.2.8 decoded atlas information hash SEI payload, wrapped in
+    the SEI envelope — mirror of ``SeiDecodedAtlasInformationHash.parse``
+    (``sei`` is that dataclass)."""
+    from .syntax import SeiPayloadType
+
+    w = BitWriter()
+    w.write(int(sei.cancel_flag), 1)
+    if not sei.cancel_flag:
+        w.write(int(sei.persistence_flag), 1)
+        w.write(sei.hash_type, 8)
+        w.write(int(sei.high_level_present), 1)
+        w.write(int(sei.atlas_present), 1)
+        w.write(int(sei.b2p_present), 1)
+        w.write(int(sei.tiles_present), 1)
+        w.write(int(sei.tiles_b2p_present), 1)
+        w.byte_align()
+        for present, h in (
+            (sei.high_level_present, sei.high_level_hash),
+            (sei.atlas_present, sei.atlas_hash),
+            (sei.b2p_present, sei.b2p_hash),
+        ):
+            if present:
+                for b in h:
+                    w.write(b, 8)
+        if sei.tiles_present or sei.tiles_b2p_present:
+            w.write_uvlc(len(sei.tile_ids) - 1)
+            id_len = max(1, max(sei.tile_ids).bit_length())
+            w.write_uvlc(id_len - 1)
+            for tid in sei.tile_ids:
+                w.write(tid, id_len)
+            w.byte_align()
+            for t in range(len(sei.tile_ids)):
+                if sei.tiles_present:
+                    for b in sei.tiles_hash[t]:
+                        w.write(b, 8)
+                if sei.tiles_b2p_present:
+                    for b in sei.tiles_b2p_hash[t]:
+                        w.write(b, 8)
+    w.pad_to_byte()
+    return write_sei_raw(
+        int(SeiPayloadType.DECODED_ATLAS_INFORMATION_HASH), w.getvalue()
+    )
+
+
+def write_sei_raw(payload_type: int, payload: bytes) -> bytes:
+    """Serialize a generic SEI payload envelope (type + size varints +
+    opaque payload bytes) — used to exercise the record-and-skip paths
+    (unknown prefix payloads, suffix SEI) end to end."""
+    w = BitWriter()
+    t = int(payload_type)
+    while t >= 0xFF:
+        w.write(0xFF, 8)
+        t -= 0xFF
+    w.write(t, 8)
+    s = len(payload)
+    while s >= 0xFF:
+        w.write(0xFF, 8)
+        s -= 0xFF
+    w.write(s, 8)
+    for b in payload:
+        w.write(b, 8)
+    return w.getvalue()
+
+
+def wrap_nal_unit(unit_type: NalUnitType, payload: bytes) -> bytes:
+    """2-byte NAL header + payload (``reader.rs:770-778``)."""
+    w = BitWriter()
+    w.write(0, 1)  # forbidden zero bit
+    w.write(int(unit_type), 6)
+    w.write(0, 6)  # layer id
+    w.write(1, 3)  # temporal id plus 1
+    return w.getvalue() + payload
+
+
+def build_nal_sample_stream(nal_units: Sequence[bytes], precision: int = 2) -> bytes:
+    """Sample-stream NAL framing: 1-byte header + sized units."""
+    w = BitWriter()
+    w.write(precision - 1, 3)
+    w.write(0, 5)
+    out = bytearray(w.getvalue())
+    for nalu in nal_units:
+        out += len(nalu).to_bytes(precision, "big")
+        out += nalu
+    return bytes(out)
+
+
+def v3c_unit_header(
+    unit_type: V3CUnitType,
+    *,
+    vps_id: int = 0,
+    atlas_id: int = 0,
+    attribute_index: int = 0,
+    attribute_dimension_index: int = 0,
+    map_index: int = 0,
+    auxiliary_video_flag: bool = False,
+) -> bytes:
+    """4-byte V3C unit header (inverse of ``V3CUnit._decode_header``)."""
+    w = BitWriter()
+    w.write(int(unit_type), 5)
+    if unit_type == V3CUnitType.VPS:
+        w.write(0, 27)
+        return w.getvalue()
+    w.write(vps_id, 4)
+    w.write(atlas_id, 6)
+    if unit_type == V3CUnitType.AVD:
+        w.write(attribute_index, 7)
+        w.write(attribute_dimension_index, 5)
+        w.write(map_index, 4)
+        w.write(int(auxiliary_video_flag), 1)
+    elif unit_type == V3CUnitType.GVD:
+        w.write(map_index, 4)
+        w.write(int(auxiliary_video_flag), 1)
+        w.write(0, 12)
+    else:  # OVD / AD
+        w.write(0, 17)
+    return w.getvalue()
+
+
+def annexb_to_length_prefixed(annexb: bytes, precision: int = 4) -> bytes:
+    """Convert an Annex-B HEVC bytestream (00 00 01 / 00 00 00 01 start
+    codes) into the length-prefixed NALU sample-stream format carried in
+    V3C video units (the inverse of ``sample_stream_to_bytestream``,
+    reference ``src/bitstream.rs:216-289``)."""
+    out = bytearray()
+    n = len(annexb)
+    starts = []
+    i = 0
+    while i + 2 < n:
+        if annexb[i] == 0 and annexb[i + 1] == 0:
+            if annexb[i + 2] == 1:
+                starts.append((i, 3))
+                i += 3
+                continue
+            if i + 3 < n and annexb[i + 2] == 0 and annexb[i + 3] == 1:
+                starts.append((i, 4))
+                i += 4
+                continue
+        i += 1
+    if not starts:
+        raise ValueError("no Annex-B start codes found")
+    for idx, (pos, sc_len) in enumerate(starts):
+        begin = pos + sc_len
+        end = starts[idx + 1][0] if idx + 1 < len(starts) else n
+        nalu = annexb[begin:end]
+        out += len(nalu).to_bytes(precision, "big")
+        out += nalu
+    return bytes(out)
+
+
+class V3CSampleStreamWriter:
+    """Builds a complete V3C sample-stream file from composed units."""
+
+    def __init__(self, precision: int = 4):
+        self.precision = precision
+        self.units: List[bytes] = []
+
+    def add_unit(self, header: bytes, payload: bytes) -> None:
+        self.units.append(header + payload)
+
+    def getvalue(self) -> bytes:
+        w = BitWriter()
+        w.write(self.precision - 1, 3)
+        w.write(0, 5)
+        out = bytearray(w.getvalue())
+        for unit in self.units:
+            out += len(unit).to_bytes(self.precision, "big")
+            out += unit
+        return bytes(out)

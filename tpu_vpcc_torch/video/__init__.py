@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from typing import List
 
-from .codec import VideoFrame, decode_annexb
+from .codec import VideoFrame, decode_annexb, encode_yuv420, encoder_supports  # noqa: F401
 from .substream import sample_stream_to_bytestream
 
 

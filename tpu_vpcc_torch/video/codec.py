@@ -94,6 +94,25 @@ def _load() -> ctypes.CDLL:
         lib.vdec_error.argtypes = [ctypes.c_void_p]
         lib.vdec_close.restype = None
         lib.vdec_close.argtypes = [ctypes.c_void_p]
+        lib.venc_open.restype = ctypes.c_void_p
+        lib.venc_open.argtypes = [ctypes.c_int] * 7
+        lib.venc_encode_frame.restype = ctypes.c_int
+        lib.venc_encode_frame.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_void_p,
+            ctypes.c_void_p,
+            ctypes.c_void_p,
+        ]
+        lib.venc_flush.restype = ctypes.c_int
+        lib.venc_flush.argtypes = [ctypes.c_void_p]
+        lib.venc_output_size.restype = ctypes.c_int64
+        lib.venc_output_size.argtypes = [ctypes.c_void_p]
+        lib.venc_copy_output.restype = ctypes.c_int64
+        lib.venc_copy_output.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+        lib.venc_error.restype = ctypes.c_char_p
+        lib.venc_error.argtypes = [ctypes.c_void_p]
+        lib.venc_close.restype = None
+        lib.venc_close.argtypes = [ctypes.c_void_p]
 
         lib.vpp_pack_planes.restype = ctypes.c_int
         lib.vpp_pack_planes.argtypes = [
@@ -246,3 +265,71 @@ def decode_annexb(
         return frames
     finally:
         lib.vdec_close(handle)
+
+
+class VideoEncodeError(Exception):
+    pass
+
+
+def encode_yuv420(
+    frames: List[List[np.ndarray]],
+    bit_depth: int = 8,
+    lossless: bool = True,
+    gop: int = 32,
+    qp: int = 20,
+    chroma444: bool = False,
+    chroma422: bool = False,
+) -> bytes:
+    """Encode YUV frames to an Annex-B HEVC bytestream via libx265.
+
+    Each frame is [y, u, v] arrays: y is (h, w); u and v are (h//2, w//2)
+    for 4:2:0 (the default), (h, w) with ``chroma444=True``, or
+    (h, w//2) with ``chroma422=True``.
+    dtype uint8 for 8-bit, uint16 (values < 1024) for 10-bit.
+    """
+    if not frames:
+        raise VideoEncodeError("no frames")
+    assert not (chroma444 and chroma422)
+    lib = _load()
+    h, w = frames[0][0].shape
+    chroma_mode = 1 if chroma444 else 2 if chroma422 else 0
+    handle = lib.venc_open(
+        w, h, bit_depth, int(lossless), gop, qp, chroma_mode
+    )
+    if not handle:
+        raise VideoEncodeError(
+            f"libx265 unavailable for bit_depth={bit_depth} "
+            f"chroma_mode={chroma_mode} (pixel format unsupported)"
+        )
+    try:
+        dtype = np.uint16 if bit_depth > 8 else np.uint8
+        for planes in frames:
+            y, u, v = (np.ascontiguousarray(p, dtype=dtype) for p in planes)
+            rc = lib.venc_encode_frame(
+                handle,
+                y.ctypes.data_as(ctypes.c_void_p),
+                u.ctypes.data_as(ctypes.c_void_p),
+                v.ctypes.data_as(ctypes.c_void_p),
+            )
+            if rc != 0:
+                raise VideoEncodeError(
+                    f"encode failed ({rc}): {lib.venc_error(handle).decode()}"
+                )
+        if lib.venc_flush(handle) != 0:
+            raise VideoEncodeError("flush failed")
+        size = lib.venc_output_size(handle)
+        out = np.empty(size, dtype=np.uint8)
+        lib.venc_copy_output(handle, out.ctypes.data_as(ctypes.c_void_p), size)
+        return out.tobytes()
+    finally:
+        lib.venc_close(handle)
+
+
+def encoder_supports(bit_depth: int) -> bool:
+    """Whether libx265 in this environment can encode the bit depth."""
+    lib = _load()
+    handle = lib.venc_open(64, 64, bit_depth, 1, 32, 20, 0)
+    if handle:
+        lib.venc_close(handle)
+        return True
+    return False

@@ -4,6 +4,8 @@
 // no tempfile detour (the reference tmc2-rs writes the bytestream to a
 // NamedTempFile before handing it to ffmpeg, src/decoder.rs:1098-1104;
 // here packets are parsed and fed straight from the caller's buffer).
+// Also exposes an encoder (libx265 via libavcodec) used to author test
+// fixtures and as an encode-side capability.
 //
 // Plain C ABI for ctypes binding; no pybind11 dependency.
 
@@ -15,6 +17,7 @@
 extern "C" {
 #include <libavcodec/avcodec.h>
 #include <libavutil/imgutils.h>
+#include <libavutil/opt.h>
 }
 
 namespace {
@@ -276,6 +279,163 @@ const char* vdec_error(void* handle) {
 
 void vdec_close(void* handle) {
   delete static_cast<DecoderCtx*>(handle);  // dtor frees libav members
+}
+
+// ---------------------------------------------------------------------------
+// Encoder (libx265) — fixture generation / encode-side capability.
+// ---------------------------------------------------------------------------
+
+struct EncoderCtx {
+  const AVCodec* codec = nullptr;
+  AVCodecContext* ctx = nullptr;
+  AVPacket* pkt = nullptr;
+  AVFrame* frame = nullptr;
+  std::vector<uint8_t> out;  // Annex-B bytestream
+  int64_t pts = 0;
+  std::string error;
+  ~EncoderCtx() {
+    if (ctx) avcodec_free_context(&ctx);
+    if (pkt) av_packet_free(&pkt);
+    if (frame) av_frame_free(&frame);
+  }
+};
+
+// bit_depth: 8 or 10. lossless: x265 lossless mode (needed for the
+// occupancy/geometry fixtures where decoded planes must equal the input).
+// Returns nullptr if the encoder or the pixel format is unavailable.
+// chroma_mode: 0 = 4:2:0 (the rec0 default), 1 = 4:4:4 full-res chroma,
+// 2 = 4:2:2 (half-width chroma).
+void* venc_open(int width, int height, int bit_depth, int lossless, int gop,
+                int qp, int chroma_mode) {
+  auto* e = new EncoderCtx();
+  e->codec = avcodec_find_encoder_by_name("libx265");
+  if (!e->codec) {
+    delete e;
+    return nullptr;
+  }
+  AVPixelFormat fmt =
+      chroma_mode == 1
+          ? (bit_depth > 8 ? AV_PIX_FMT_YUV444P10LE : AV_PIX_FMT_YUV444P)
+      : chroma_mode == 2
+          ? (bit_depth > 8 ? AV_PIX_FMT_YUV422P10LE : AV_PIX_FMT_YUV422P)
+          : (bit_depth > 8 ? AV_PIX_FMT_YUV420P10LE : AV_PIX_FMT_YUV420P);
+  bool supported = false;
+  for (const AVPixelFormat* p = e->codec->pix_fmts;
+       p && *p != AV_PIX_FMT_NONE; ++p) {
+    if (*p == fmt) supported = true;
+  }
+  if (!supported) {
+    delete e;
+    return nullptr;
+  }
+  e->ctx = avcodec_alloc_context3(e->codec);
+  if (!e->ctx) {
+    delete e;
+    return nullptr;
+  }
+  e->ctx->width = width;
+  e->ctx->height = height;
+  e->ctx->time_base = {1, 30};
+  e->ctx->framerate = {30, 1};
+  e->ctx->pix_fmt = fmt;
+  e->ctx->gop_size = gop;
+  e->ctx->max_b_frames = 0;
+  // frame-threads=1 makes the emitted bitstream deterministic: with
+  // multiple frame threads x265's rate/CABAC bookkeeping varies with
+  // thread timing and can occasionally append trailing cabac_zero_words
+  // to a NALU, which an Annex-B start-code scan then splits differently
+  // run-to-run (observed as a rare fixture-roundtrip flake)
+  std::string params = "log-level=none:annexb=1:frame-threads=1";
+  if (lossless) params += ":lossless=1";
+  else params += ":qp=" + std::to_string(qp);
+  av_opt_set(e->ctx->priv_data, "x265-params", params.c_str(), 0);
+  av_opt_set(e->ctx->priv_data, "preset", "fast", 0);
+  if (avcodec_open2(e->ctx, e->codec, nullptr) < 0) {
+    delete e;
+    return nullptr;
+  }
+  e->pkt = av_packet_alloc();
+  e->frame = av_frame_alloc();
+  if (!e->pkt || !e->frame) {
+    delete e;
+    return nullptr;
+  }
+  e->frame->format = fmt;
+  e->frame->width = width;
+  e->frame->height = height;
+  if (av_frame_get_buffer(e->frame, 0) < 0) {
+    delete e;
+    return nullptr;
+  }
+  return e;
+}
+
+namespace {
+int venc_drain(EncoderCtx* e) {
+  while (true) {
+    int ret = avcodec_receive_packet(e->ctx, e->pkt);
+    if (ret == AVERROR(EAGAIN) || ret == AVERROR_EOF) return 0;
+    if (ret < 0) {
+      e->error = "avcodec_receive_packet failed";
+      return ret;
+    }
+    e->out.insert(e->out.end(), e->pkt->data, e->pkt->data + e->pkt->size);
+    av_packet_unref(e->pkt);
+  }
+}
+}  // namespace
+
+// Planes are tightly packed y, u, v (u16 native-endian when bit_depth=10).
+int venc_encode_frame(void* handle, const uint8_t* y, const uint8_t* u,
+                      const uint8_t* v) {
+  auto* e = static_cast<EncoderCtx*>(handle);
+  if (av_frame_make_writable(e->frame) < 0) return -1;
+  const AVPixFmtDescriptor* desc = av_pix_fmt_desc_get(e->ctx->pix_fmt);
+  int bps = desc->comp[0].depth > 8 ? 2 : 1;
+  int w = e->ctx->width, h = e->ctx->height;
+  const uint8_t* srcs[3] = {y, u, v};
+  for (int p = 0; p < 3; ++p) {
+    int pw = p == 0 ? w : (w >> desc->log2_chroma_w);
+    int ph = p == 0 ? h : (h >> desc->log2_chroma_h);
+    for (int row = 0; row < ph; ++row) {
+      std::memcpy(e->frame->data[p] +
+                      static_cast<size_t>(row) * e->frame->linesize[p],
+                  srcs[p] + static_cast<size_t>(row) * pw * bps,
+                  static_cast<size_t>(pw) * bps);
+    }
+  }
+  e->frame->pts = e->pts++;
+  if (avcodec_send_frame(e->ctx, e->frame) < 0) {
+    e->error = "avcodec_send_frame failed";
+    return -2;
+  }
+  return venc_drain(e);
+}
+
+int venc_flush(void* handle) {
+  auto* e = static_cast<EncoderCtx*>(handle);
+  avcodec_send_frame(e->ctx, nullptr);
+  return venc_drain(e);
+}
+
+int64_t venc_output_size(void* handle) {
+  return static_cast<int64_t>(static_cast<EncoderCtx*>(handle)->out.size());
+}
+
+int64_t venc_copy_output(void* handle, uint8_t* dst, int64_t dst_size) {
+  auto* e = static_cast<EncoderCtx*>(handle);
+  int64_t n = static_cast<int64_t>(e->out.size());
+  if (dst_size < n) return -1;
+  std::memcpy(dst, e->out.data(), n);
+  return n;
+}
+
+const char* venc_error(void* handle) {
+  return static_cast<EncoderCtx*>(handle)->error.c_str();
+}
+
+void venc_close(void* handle) {
+  delete static_cast<EncoderCtx*>(handle);  // dtor frees libav members
 }
 
 // ---------------------------------------------------------------------------
