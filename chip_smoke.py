@@ -85,9 +85,10 @@ failure:
      the HEVC decode alone is served from the store's frames (this
      machine has no libavcodec); V3C parse, atlas, group tables,
      staging, the kernels, smoothing, the host tails and PLY run as
-     they do with the bridge. Each of the 19 entries (every fixture
+     they do with the bridge. Each of the 23 entries (every fixture
      family of ``tests/test_torch_e2e.py``, the 1280^2 lossy
-     ``flagship_1280_q8`` and the stream of ``examples/roundtrip.py``)
+     ``flagship_1280_q8``, the stream of ``examples/roundtrip.py`` and
+     the graft dry run's streams at 1-4 'data' rows)
      through ``runtime.cli.main`` in this process
      with ``--device cuda`` and its flags: exit 0, every file byte-equal
      to the port's ``--oracle`` CLI on the CPU from the same store and
@@ -171,7 +172,21 @@ failure:
      at GOF R's shape stitch to the unsharded gather. Then the host clock
      of a narrow and a wide dispatch with and without the mesh, the
      times and bytes of ``combine_stats`` on the smoothing GOF's grids,
-     the peak memory of each device and the phase's seconds.
+     the peak memory of each device and the phase's seconds;
+ 12. the graft entry (``tpu_vpcc_torch.graft_entry``) on the card, the
+     native video bridge refused: ``entry("cuda")`` (K5, then the narrow
+     dispatch with K1 at 256^2) against ``entry("cpu")``'s plain
+     versions, counts equal and compacted prefixes byte-equal, K5 and K1
+     launched once each; then ``dryrun_multichip(n, "cuda:0")`` for n =
+     1, 2, 3, 4 and 8 and, on a machine with several cards,
+     ``dryrun_multichip(device_count, "cuda")``: each dry run's sharded
+     steps agree, and the reference's dry-run stream, authored by the
+     port's ``build_fixture_stream`` with its HEVC encode and decode
+     served from the video store, decodes through the mesh to one frame
+     per 'data' row, each with points, byte-equal to the oracle and the
+     store entry's digests; K5, K2W, K1F and K1 each launched. One line
+     gives each call's seconds and the store's served encodes and
+     lookups.
 
 A kernel's times (``tools.kernel_times.measure``): its device-only time
 (the work the card ran, from a whole ``torch.profiler`` trace of 20
@@ -193,9 +208,9 @@ limit line.
     python3 chip_smoke.py --mesh-only
 
 runs phase 1's builds, the meshless decodes of the GOFs phase 11 uses
-(without their oracle checks and timings, which the full run makes) and
-phase 11, then the ``nvidia-smi`` and ``ok`` lines: the run for a
-machine with four cards.
+(without their oracle checks and timings, which the full run makes),
+phases 11 and 12, then the ``nvidia-smi`` and ``ok`` lines: the run for
+a machine with four cards.
 """
 
 from __future__ import annotations
@@ -1621,22 +1636,24 @@ def flagship_stream(store):
 @contextmanager
 def bridge_refused():
     """While open, every call of the native video bridge's loader
-    (``video.codec._load``) is refused and recorded; on exit the run
-    fails if there was one."""
+    (``video.codec._load``) is refused and recorded, and the PLY writer
+    formats with numpy, as it does where the bridge cannot load; on exit
+    the run fails if there was a call."""
+    from tpu_vpcc_torch.utils import ply
     from tpu_vpcc_torch.video import codec
 
     calls = []
 
     def refuse():
         calls.append(1)
-        raise OSError("phase 6b may not load the native video bridge")
+        raise OSError("the native video bridge may not load here")
 
-    real = codec._load
-    codec._load = refuse
+    real, real_ply = codec._load, ply._ply_lib
+    codec._load, ply._ply_lib = refuse, False
     try:
         yield
     finally:
-        codec._load = real
+        codec._load, ply._ply_lib = real, real_ply
     check(not calls, f"the native video bridge's loader was called "
           f"{len(calls)} times")
 
@@ -2387,6 +2404,78 @@ def phase_mesh(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
 
 
+#: the meshes of phase 12's dry runs on ``cuda:0``: 1, 2, 3, 4 and 8
+#: devices, that is 1, 1, 3, 2 and 4 'data' rows
+GRAFT_MESHES = (1, 2, 3, 4, 8)
+
+
+def phase_graft():
+    """Phase 12, the port's graft entry (``tpu_vpcc_torch.graft_entry``)
+    on the card: ``entry("cuda")``'s dispatch against ``entry("cpu")``'s
+    plain versions (counts equal, compacted prefixes byte-equal; K5 and
+    K1 launched once), then ``dryrun_multichip(n, "cuda:0")`` for the
+    :data:`GRAFT_MESHES` and, on a machine with several cards,
+    ``dryrun_multichip(device_count, "cuda")`` over distinct cards; each
+    dry run authors its stream with the port's builder, serves its video
+    from the store and raises on a mismatch with the oracle, and K5, K2W,
+    K1F and K1 are each launched. The native video bridge is never
+    loaded."""
+    import torch
+
+    from tpu_vpcc_torch import graft_entry
+    from tpu_vpcc_torch.tools.kernel_times import nvidia_smi_line
+    from tpu_vpcc_torch.tools.video_store import VideoStore
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    secs = {}
+    with bridge_refused():
+        fn, args = graft_entry.entry("cuda")
+        _reset_launches()
+        t0 = time.perf_counter()
+        ops, counts = fn(*args)
+        torch.cuda.synchronize()
+        secs["entry"] = time.perf_counter() - t0
+        launches = _launch_counts()
+        check(launches == {"K1": 1, "K2W": 0, "K1F": 0, "K5": 1},
+              f"entry('cuda'): kernel launches {launches}, want K5 1, K1 1")
+        fn_c, args_c = graft_entry.entry("cpu")
+        ops_c, counts_c = fn_c(*args_c)
+        check(torch.equal(counts.cpu(), counts_c) and int(counts_c[0]) > 0,
+              f"entry('cuda'): counts {counts.tolist()}, plain "
+              f"{counts_c.tolist()}")
+        check(len(ops) == len(ops_c) and all(
+            torch.equal(a[f, :n].cpu(), b[f, :n])
+            for a, b in zip(ops, ops_c)
+            for f, n in enumerate(counts_c.tolist())),
+              "entry('cuda'): a compacted prefix differs from the plain "
+              "version's")
+        print(f"graft entry('cuda'): {len(ops)} operands, counts "
+              f"{counts_c.tolist()}, byte-equal to entry('cpu'); launches "
+              f"{launches}")
+        store = VideoStore()
+        runs = [(n, "cuda:0") for n in GRAFT_MESHES]
+        if torch.cuda.device_count() > 1:
+            runs.append((torch.cuda.device_count(), "cuda"))
+        for n, device in runs:
+            _reset_launches()
+            t0 = time.perf_counter()
+            graft_entry.dryrun_multichip(n, device, store=store)
+            torch.cuda.synchronize()
+            secs[f"dryrun_multichip({n}, {device!r})"] = \
+                time.perf_counter() - t0
+            launches = _launch_counts()
+            check(min(launches.values()) > 0,
+                  f"dryrun_multichip({n}, {device!r}): kernel launches "
+                  f"{launches}, want each of K5, K2W, K1F, K1")
+            print(f"graft dryrun_multichip({n}, {device!r}): passed, "
+                  f"launches {launches}")
+    print(f"phase 12 ({smi}): seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+          + f"; store: {store.encode_hits} encodes served, {store.hits} "
+          f"lookups; no native bridge; {time.perf_counter() - t_phase:.1f} s")
+
+
 def _ok_lines(smi: str) -> None:
     import torch
 
@@ -2400,9 +2489,9 @@ def _ok_lines(smi: str) -> None:
 
 def mesh_only(t_script) -> int:
     """``python3 chip_smoke.py --mesh-only``: the builds, the meshless
-    decodes phase 11 compares with, and phase 11; for a machine with
-    four cards, where the other phases would only repeat the one-card
-    run."""
+    decodes phase 11 compares with, phase 11 and phase 12; for a machine
+    with four cards, where the other phases would only repeat the
+    one-card run."""
     from tpu_vpcc_torch.tools.kernel_times import TimingError, nvidia_smi_line
 
     try:
@@ -2412,6 +2501,7 @@ def mesh_only(t_script) -> int:
             mesh_only_inputs(fcfg, frame_sets, gofs)
         phase_mesh(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
                    gather_out)
+        phase_graft()
         print(f"script: {time.perf_counter() - t_script:.1f} s")
     except (SmokeFailure, TimingError) as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -2467,6 +2557,7 @@ def main() -> int:
               f"far: {time.perf_counter() - t_script:.1f} s")
         phase_mesh(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
                    gather_out)
+        phase_graft()
         print(f"script so far: {time.perf_counter() - t_script:.1f} s")
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                         ("jax", "jaxlib", "tpu_vpcc"))

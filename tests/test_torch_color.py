@@ -1,16 +1,18 @@
 """Colour conversion of the PyTorch port (tpu_vpcc_torch.ops.color)
-against tpu_vpcc's exact integer form and the reference f64 chain."""
+against its exact numpy integer form (a copy of tpu_vpcc's) and the
+reference f64 chain."""
 import numpy as np
 import pytest
 import torch
 
-from tpu_vpcc.ops.color import (
-    _G_CHAIN_DEVIATIONS,
-    convert_yuv10_to_rgb8_lut,
-    g8_from_packed,
-)
+from tpu_vpcc.ops import color as ref_color
+from tpu_vpcc.ops.color import _G_CHAIN_DEVIATIONS, g8_from_packed
 from tpu_vpcc.reconstruction.pointset import convert_yuv10_to_rgb8
-from tpu_vpcc_torch.ops.color import rgb8_from_rgb16, rgb8_from_yuv16
+from tpu_vpcc_torch.ops.color import (
+    convert_yuv10_to_rgb8_lut,
+    rgb8_from_rgb16,
+    rgb8_from_yuv16,
+)
 
 
 def _port(yuv: np.ndarray) -> np.ndarray:
@@ -55,6 +57,21 @@ def test_batched_shape_and_rgb16():
     out = rgb8_from_rgb16(torch.from_numpy(rgb16))
     assert out.dtype == torch.uint8
     np.testing.assert_array_equal(out.numpy(), (rgb16 & 0xFF).astype(np.uint8))
+
+
+@pytest.mark.parametrize("seed", [4, 5])
+def test_lut_form_matches_reference(seed):
+    """The port's numpy integer form against tpu_vpcc's and the f64
+    chain, on random 10-bit triples and the 45 chain deviations."""
+    rng = np.random.default_rng(seed)
+    yuv = np.concatenate([
+        rng.integers(0, 1024, (100_000, 3), dtype=np.uint16),
+        np.array(sorted(_G_CHAIN_DEVIATIONS), dtype=np.uint16),
+    ])
+    got = convert_yuv10_to_rgb8_lut(yuv)
+    assert got.dtype == np.uint8 and got.shape == yuv.shape
+    np.testing.assert_array_equal(got, ref_color.convert_yuv10_to_rgb8_lut(yuv))
+    np.testing.assert_array_equal(got[-5045:], convert_yuv10_to_rgb8(yuv[-5045:]))
 
 
 def test_g8_from_packed_on_int32_tensors():

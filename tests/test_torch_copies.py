@@ -435,3 +435,45 @@ def test_mesh_host_helpers_are_verbatim_copies(name):
         for counts in ([3, 0, 6], [8, 8, 8], [0, 0, 0]):
             c = np.asarray(counts, np.int32)
             assert canon(got(pos, col, c, 8)) == canon(ref(pos, col, c, 8))
+
+
+#: the host helpers copied last, by module: ``video.codec``'s thread
+#: query, ``video``'s plane stackers, ``ops.color``'s numpy integer form,
+#: and the f64 smoothing oracles (kept in the port's ``ops.smoothing_np``)
+HOST_COPIES = [
+    ("video.codec", "video.codec", "decoder_thread_info"),
+    ("video", "video", "occupancy_planes"),
+    ("video", "video", "geometry_planes"),
+    ("video", "video", "attribute_planes"),
+    ("ops.color", "ops.color", "convert_yuv10_to_rgb8_lut"),
+    ("ops.smoothing_np", "ops.smoothing", "smooth_slots_f64"),
+    ("ops.smoothing_np", "ops.smoothing", "smooth_colors_f64"),
+]
+
+
+@pytest.mark.parametrize("port_mod,ref_mod,name", HOST_COPIES,
+                         ids=[c[2] for c in HOST_COPIES])
+def test_host_copies_are_verbatim(port_mod, ref_mod, name):
+    """Each function is the reference's, word for word (its citations of
+    the upstream decoder's sources name them from the source tree's root,
+    as the port's other copies do); for ``decoder_thread_info``, so are
+    the ctypes signatures of the two native calls it makes, in the
+    bridge's loader."""
+    import inspect
+
+    got = getattr(importlib.import_module(f"tpu_vpcc_torch.{port_mod}"), name)
+    ref = getattr(importlib.import_module(f"tpu_vpcc.{ref_mod}"), name)
+    assert inspect.getsource(got) == \
+        inspect.getsource(ref).replace("``/root/reference/src/", "``src/")
+    if name == "decoder_thread_info":
+        from tpu_vpcc.video import codec as ref_codec
+        from tpu_vpcc_torch.video import codec
+
+        port_load = inspect.getsource(codec._load)
+        ref_load = inspect.getsource(ref_codec._load)
+        for fn in ("vdec_open_threads", "vdec_thread_info"):
+            ref_lines = [ln for ln in ref_load.split("        lib.")
+                         if ln.startswith(f"{fn}.")]
+            assert len(ref_lines) == 2, fn
+            for ln in ref_lines:
+                assert f"        lib.{ln}" in port_load, (fn, ln)

@@ -32,6 +32,7 @@ from test_sharding import ARGS, make_batch, tile_batch
 from test_torch_batcher import _prepared_gof, make_streams
 from test_torch_dispatch import count_plain_packs, host_pack_staging
 from test_torch_e2e import STREAM_PARAMS, STREAMS, needs_encoder
+from test_torch_encoder import no_bridge  # noqa: F401  (a fixture)
 from tpu_vpcc.ops import reconstruct as ref_reconstruct
 from tpu_vpcc.ops.smoothing import AttrSmoothingConfig as RefAttrSmoothing
 from tpu_vpcc.ops.smoothing import SmoothingConfig as RefSmoothing
@@ -617,15 +618,98 @@ def test_graft_entry_matches_reference_entry():
         np.testing.assert_array_equal(a.numpy().view(b.dtype), b)
 
 
-@needs_encoder
 @pytest.mark.parametrize("n_devices", [8, 3])
-def test_graft_entry_dryrun_on_cpu(n_devices):
-    """``graft_entry.dryrun_multichip`` on the CPU named n times: its
-    sharded steps agree and the committed stream decodes through the
+def test_graft_entry_dryrun_on_cpu(n_devices, no_bridge):
+    """``graft_entry.dryrun_multichip`` on the CPU named n times, the
+    native video bridge refused: its sharded steps agree and the stream
+    it authors, its video served from the store, decodes through the
     mesh byte-equal to the oracle (it raises otherwise)."""
     from tpu_vpcc_torch import graft_entry
 
     graft_entry.dryrun_multichip(n_devices, device="cpu")
+
+
+@pytest.mark.parametrize("n_devices,data", [(1, 1), (2, 1), (4, 2)])
+def test_graft_entry_dryrun_never_calls_bridge(n_devices, data, no_bridge,
+                                               monkeypatch):
+    """The dry run's stream step calls neither the bridge's decode
+    (``runtime.pipeline.decompress_video``) nor its encoder (the
+    ``utils.fixtures.encode_yuv420`` that ``build_fixture_stream``
+    calls): the store serves both, at every row count; the decode
+    looks up each of the entry's decoded results."""
+    from tpu_vpcc_torch import graft_entry
+    from tpu_vpcc_torch.runtime import pipeline
+    from tpu_vpcc_torch.tools import video_store
+    from tpu_vpcc_torch.utils import fixtures
+
+    called = []
+
+    def spy(name):
+        def call(*args, **kw):
+            called.append(name)
+            raise AssertionError(f"the dry run called the bridge's {name}")
+        return call
+
+    bridge_decode = spy("decompress_video")
+    monkeypatch.setattr(pipeline, "decompress_video", bridge_decode)
+    monkeypatch.setattr(fixtures, "encode_yuv420", spy("encode_yuv420"))
+    store = video_store.VideoStore()
+    graft_entry.dryrun_multichip(n_devices, device="cpu", store=store)
+    assert not called
+    assert pipeline.decompress_video is bridge_decode  # restored
+    entry = store.entries[graft_entry.DRYRUN_ENTRY.format(data=data)]
+    # one served encode a video unit, and every decoded result looked up
+    assert store.encode_hits == len(video_store.video_units(
+        entry.stream.read_bytes()))
+    assert store.hits >= len(entry.calls)
+
+
+@pytest.mark.parametrize("data", [1, 2, 3, 4])
+def test_graft_dryrun_stream_matches_reference(data, no_bridge, monkeypatch):
+    """``graft_entry.dryrun_stream`` (the port's scene generator and
+    ``build_fixture_stream``) equals the stream that the root
+    ``__graft_entry__``'s dry run authors at the same rows, both
+    encoding through the store, and the store's entry."""
+    from test_torch_video_store import reference_dryrun_stream
+    from tpu_vpcc.utils import fixtures as ref_fixtures
+    from tpu_vpcc_torch import graft_entry
+    from tpu_vpcc_torch.tools.video_store import VideoStore, served_encode
+
+    store = VideoStore()
+    monkeypatch.setattr(ref_fixtures, "encode_yuv420", store.encode)
+    ref = reference_dryrun_stream(data)
+    with served_encode(store):
+        got = graft_entry.dryrun_stream(data)
+    name = graft_entry.DRYRUN_ENTRY.format(data=data)
+    assert got == ref == store.entries[name].stream.read_bytes()
+
+
+@pytest.mark.parametrize("n_devices", [5, 10])
+def test_graft_entry_dryrun_without_entry_raises(n_devices, no_bridge):
+    """Five 'data' rows (5 devices, or 10 in two 'space' shards) have no
+    store entry: the dry run raises ``StoreMiss`` naming the entry, and
+    neither falls back to the bridge nor skips its stream step."""
+    from tpu_vpcc_torch import graft_entry
+    from tpu_vpcc_torch.tools.video_store import StoreMiss
+
+    with pytest.raises(StoreMiss, match="graft_dryrun_d5"):
+        graft_entry.dryrun_multichip(n_devices, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_devices", [1, 2, 3, 4, 8])
+def test_graft_entry_dryrun_on_card(n_devices, no_bridge):
+    """The dry run with ``cuda:0`` named n times; every kernel of its
+    path launched (K5, K2W, K1F, K1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (on the card: pytest -m cuda)")
+    from tpu_vpcc_torch import graft_entry
+
+    for mod in (sc, payload, pack):
+        mod.reset_launches()
+    graft_entry.dryrun_multichip(n_devices, device="cuda:0")
+    assert min(sc.launches, sc.full_launches, payload.launches,
+               pack.launches) > 0
 
 
 def test_graft_entry_without_card_raises(monkeypatch):

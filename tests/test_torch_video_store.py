@@ -1,9 +1,10 @@
 """The committed video store (``tpu_vpcc_torch/tools/video_store.py``,
 ``tests/data/video_store/``): every fixture family of
-``test_torch_e2e.STREAMS``, one 1280^2 lossy stream and the stream of
-``examples/roundtrip.py``, each with the frames the native libavcodec
-bridge decoded from its HEVC sub-bitstreams and the SHA-256 of the PLY
-files ``tpu_vpcc``'s CLI writes; and the ``encoded`` table, by which the
+``test_torch_e2e.STREAMS``, one 1280^2 lossy stream, the stream of
+``examples/roundtrip.py`` and the graft dry run's streams at 1-4 'data'
+rows, each with the frames the native libavcodec bridge decoded from
+its HEVC sub-bitstreams and the SHA-256 of the PLY files ``tpu_vpcc``'s
+CLI writes; and the ``encoded`` table, by which the
 port's ``build_fixture_stream`` rebuilds every stream without libx265
 (``tests/test_torch_encoder.py``).
 
@@ -68,14 +69,18 @@ ROOT = Path(__file__).resolve().parent.parent
 FLAGSHIP = "flagship_1280_q8"
 #: the stream of ``examples/roundtrip.py``
 ROUNDTRIP = "roundtrip"
-#: the store's entries: ``test_torch_e2e.STREAMS``, the 1280^2 stream and
-#: the roundtrip example's
+#: the graft dry run's streams (``graft_entry.dryrun_stream``), by 'data'
+#: rows: meshes of 1, 2, 3, 4 and 8 devices have 1, 1, 3, 2 and 4 rows
+DRYRUN_ROWS = (1, 2, 3, 4)
+DRYRUNS = tuple(f"graft_dryrun_d{d}" for d in DRYRUN_ROWS)
+#: the store's entries: ``test_torch_e2e.STREAMS``, the 1280^2 stream, the
+#: roundtrip example's and the graft dry run's
 NAMES = (
     "atlas_hash", "aux_raw", "chroma422", "multi_tile_aux",
     "pixel_interleave", "plr", "proj45", "proj45_three_maps",
     "raw_eom_secondary", "rotated", "rotated_smoothing_secondary",
     "rotated_three_maps", "smoothing", "smoothing_secondary", "three_maps",
-    "verify", "vui", FLAGSHIP, ROUNDTRIP,
+    "verify", "vui", FLAGSHIP, ROUNDTRIP, *DRYRUNS,
 )
 #: a narrow (K1), a wide (K2W, K1F) and a gather (K1F) entry
 ON_CARD = ("verify", "smoothing", "rotated")
@@ -149,7 +154,7 @@ def wrapper_calls():
 
 
 def test_manifest_lists_every_entry(store):
-    """The 19 entries, each with outputs, decoded results and its kernel
+    """The 23 entries, each with outputs, decoded results and its kernel
     path; the multi-stream run; the whole store under 12 MiB."""
     assert tuple(sorted(store.entries)) == tuple(sorted(NAMES))
     for name, e in store.entries.items():
@@ -171,6 +176,8 @@ def test_manifest_lists_every_entry(store):
     assert [o["name"] for o in roundtrip.outputs] == [
         f"{i:04d}.ply" for i in range(4)]
     assert roundtrip.launches["K1"] > 0
+    for d, name in zip(DRYRUN_ROWS, DRYRUNS):
+        assert len(store.entries[name].outputs) == d, name
     assert store.multi == {"entries": list(MULTI), "flags": SMOOTHING_FLAGS}
     size = sum(p.stat().st_size for p in STORE_DIR.iterdir())
     assert size < MAX_STORE_BYTES, size
@@ -351,16 +358,44 @@ def reference_roundtrip(out_dir) -> bytes:
     return (Path(out_dir) / "stream.bin").read_bytes()
 
 
+def reference_dryrun_stream(data: int) -> bytes:
+    """The stream that the root ``__graft_entry__.dryrun_multichip``
+    authors at ``data`` 'data' rows (its lines, copied: the module can
+    only be run whole), with ``tpu_vpcc``'s scene generator and
+    ``build_fixture_stream``."""
+    from tpu_vpcc.utils.fixtures import build_fixture_stream
+    from tpu_vpcc.utils.synthetic import make_synthetic_frame
+
+    rng = np.random.default_rng(51)
+    sfs = [
+        make_synthetic_frame(
+            rng, width=64, height=64, occupancy_resolution=8,
+            occupancy_precision=4, map_count=2, n_patches=3, frame_index=i,
+        )
+        for i in range(data)  # one frame per 'data' row
+    ]
+    return build_fixture_stream(sfs, atlas_hash_sei=True)
+
+
 def recipe(name: str, package: str) -> bytes:
     """Entry ``name``'s stream as ``package`` (``"tpu_vpcc"`` or
     ``"tpu_vpcc_torch"``) builds it with its own ``build_fixture_stream``
     (and so with whatever its ``utils.fixtures.encode_yuv420`` is): a
     family of ``test_torch_e2e.RECIPES`` under ``built_with(package)``,
     ``flagship_1280_q8`` from ``flagship_frames`` on the package's scene
-    generator, and ``roundtrip`` by the package's roundtrip example (for
-    ``tpu_vpcc``, ``examples/roundtrip.py`` run whole)."""
+    generator, ``roundtrip`` by the package's roundtrip example (for
+    ``tpu_vpcc``, ``examples/roundtrip.py`` run whole), and
+    ``graft_dryrun_d<rows>`` by the package's graft dry run
+    (:func:`reference_dryrun_stream`, ``graft_entry.dryrun_stream``)."""
     from test_torch_e2e import RECIPES, built_with
 
+    if name in DRYRUNS:
+        data = DRYRUN_ROWS[DRYRUNS.index(name)]
+        if package == "tpu_vpcc":
+            return reference_dryrun_stream(data)
+        from tpu_vpcc_torch.graft_entry import dryrun_stream
+
+        return dryrun_stream(data)
     if name == ROUNDTRIP and package == "tpu_vpcc":
         with tempfile.TemporaryDirectory() as tmp:
             return reference_roundtrip(tmp)

@@ -41,6 +41,7 @@ from tpu_vpcc.runtime import pipeline as ref_pipeline
 from tpu_vpcc_torch.ops import payload as K2W
 from tpu_vpcc_torch.ops import shift_compact as sc
 from tpu_vpcc_torch.ops import smoothing as S
+from tpu_vpcc_torch.ops import smoothing_np as SNP
 from tpu_vpcc_torch.ops import tiled as T
 from tpu_vpcc_torch.runtime import pipeline as P
 
@@ -512,6 +513,148 @@ def test_rot45_matches_reference():
         )
         for a, b in zip(ref, got):
             np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+# ---------------------------------------------------------------------------
+# the f64 smoothing oracles (tests/test_smoothing_f64.py on the port's
+# copies in ops/smoothing_np.py)
+# ---------------------------------------------------------------------------
+
+F64_CFG = S.SmoothingConfig(grid_size=8, threshold=16, geometry_bitdepth_3d=10)
+
+
+def clustered_points(seed, n=50_000, n_clusters=300, n_patches=8):
+    rng = np.random.default_rng(seed)
+    centers = rng.integers(32, 992, (n_clusters, 3))
+    idx = rng.integers(0, n_clusters, n)
+    pts = np.clip(
+        centers[idx] + rng.normal(0, 3, (n, 3)).astype(int), 0, 1023
+    ).astype(np.int32)
+    pid = rng.integers(0, n_patches, n).astype(np.int32)
+    return pts, pid, np.ones(n, np.int32)
+
+
+def _geo_specs(pts, pid, valid):
+    """The int32 spec and the f64 oracle of the port on one point set,
+    each (n, 3)."""
+    args = (pts[:, 0], pts[:, 1], pts[:, 2], valid, pid, F64_CFG)
+    return (np.stack(SNP.smooth_slots_np(*args), 1),
+            np.stack(SNP.smooth_slots_f64(*args), 1))
+
+
+def test_geo_specs_agree_away_from_threshold():
+    pts, pid, valid = clustered_points(0)
+    A, B = _geo_specs(pts, pid, valid)
+    moved_a = (A != pts).any(1)
+    moved_b = (B != pts).any(1)
+    # the move gates disagree only for threshold straddlers
+    assert (moved_a != moved_b).mean() < 0.025
+    # where both move a point, the landings differ by at most half a cell
+    both = moved_a & moved_b
+    assert both.sum() > 100  # the comparison is non-vacuous
+    assert np.abs(A[both].astype(int) - B[both].astype(int)).max() <= \
+        F64_CFG.grid_size // 2
+    neither = ~moved_a & ~moved_b
+    np.testing.assert_array_equal(A[neither], pts[neither])
+    np.testing.assert_array_equal(B[neither], pts[neither])
+
+
+def test_geo_gate_mismatches_are_threshold_straddlers():
+    """Every gate disagreement lies in a narrow f64-dist^2 window around
+    the SEI threshold."""
+    pts, pid, valid = clustered_points(1)
+    A, B = _geo_specs(pts, pid, valid)
+    mism = (A != pts).any(1) != (B != pts).any(1)
+    f64_only = mism & (B != pts).any(1)
+    d2 = ((B[f64_only].astype(float) - pts[f64_only]) ** 2).sum(1)
+    assert d2.size and (d2 >= F64_CFG.threshold - 4).all()
+    assert (d2 <= F64_CFG.threshold + 12).all()
+
+
+def test_color_f64_blend_matches_hand_case():
+    # the f64 blend (1575*500 + 2025*900) / 3600 = 725.0 exactly: both
+    # specs agree
+    a = np.array([[100 + dx, 100 + dy, 100] for dx in range(4)
+                  for dy in range(4)])
+    b = np.array([[100, 100, 104]])
+    pts = np.concatenate([a, b]).astype(np.int32)
+    pid = np.array([0] * len(a) + [1], np.int32)
+    valid = np.ones(len(pts), np.int32)
+    cols = np.full((len(pts), 3), 500, np.int32)
+    cols[len(a)] = (900, 500, 500)
+    cfg = S.AttrSmoothingConfig(
+        grid_size=8, threshold_variation=400, threshold_difference=50,
+        geometry_bitdepth_3d=10,
+    )
+    args = (pts[:, 0], pts[:, 1], pts[:, 2], cols[:, 0], cols[:, 1],
+            cols[:, 2], valid, pid, cfg)
+    ci = SNP.smooth_colors_np(*args)
+    cf = SNP.smooth_colors_f64(*args)
+    assert ci[0][len(a)] == cf[0][len(a)] == 725
+    np.testing.assert_array_equal(np.stack(ci, 1), np.stack(cf, 1))
+
+
+def test_fixture_decode_divergence_negligible():
+    """On a reconstructed synthetic frame (the port's scene and oracle)
+    the two specs are near identical: <0.2% of positions differ, D1 PSNR
+    >= 80 dB."""
+    from tpu_vpcc_torch.reconstruction.oracle import (
+        GeneratePointCloudParams,
+        generate_point_cloud,
+    )
+    from tpu_vpcc_torch.reconstruction.pointset import PointSet3
+    from tpu_vpcc_torch.utils.metrics import d1_metric
+    from tpu_vpcc_torch.utils.synthetic import make_synthetic_frame
+
+    rng = np.random.default_rng(5)
+    diverged = 0
+    for _ in range(3):
+        sf = make_synthetic_frame(
+            rng, width=128, height=128, occupancy_resolution=8,
+            occupancy_precision=4, n_patches=6, frame_index=0,
+        )
+        params = GeneratePointCloudParams(
+            occupancy_resolution=sf.occupancy_resolution,
+            occupancy_precision=sf.occupancy_precision,
+            map_count_minus1=sf.map_count - 1,
+        )
+        ps, partition, _ = generate_point_cloud(
+            sf.meta, params, sf.occ_plane, sf.geo_planes, [sf.attr_planes]
+        )
+        A, B = _geo_specs(ps.positions.astype(np.int32),
+                          np.asarray(partition, np.int32),
+                          np.ones(len(ps), np.int32))
+        assert (A != B).any(1).mean() < 0.002
+        diverged += (A != B).any(1).sum()
+        m = d1_metric(PointSet3(positions=A.astype(np.uint16)),
+                      PointSet3(positions=B.astype(np.uint16)))
+        assert m.psnr >= 80.0
+    assert diverged > 0, "comparison must exercise at least one divergence"
+
+
+@pytest.mark.parametrize("spec", ["geometry", "colour"])
+def test_f64_oracles_match_reference(spec):
+    """The port's f64 oracles and tpu_vpcc's give equal outputs on the
+    same clustered points."""
+    pts, pid, valid = clustered_points(2, n=20_000)
+    xyz = (pts[:, 0], pts[:, 1], pts[:, 2])
+    if spec == "geometry":
+        got = SNP.smooth_slots_f64(*xyz, valid, pid, F64_CFG)
+        ref = ref_smoothing.smooth_slots_f64(
+            *xyz, valid, pid, SmoothingConfig(8, 16, 10))
+    else:
+        cols = np.random.default_rng(3).integers(0, 1024, (len(pts), 3))
+        cfg = dict(grid_size=8, threshold_variation=64,
+                   threshold_difference=4, geometry_bitdepth_3d=10)
+        got = SNP.smooth_colors_f64(*xyz, *cols.T, valid, pid,
+                                    S.AttrSmoothingConfig(**cfg))
+        ref = ref_smoothing.smooth_colors_f64(*xyz, *cols.T, valid, pid,
+                                              AttrSmoothingConfig(**cfg))
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    before = xyz if spec == "geometry" else tuple(cols.T)
+    assert any((a != b).any() for a, b in zip(got, before)), "nothing moved"
 
 
 # ---------------------------------------------------------------------------

@@ -5,17 +5,20 @@ Counterpart of the repository's root ``__graft_entry__.py`` (which stays
 the JAX package's). The reference's dry run creates virtual CPU devices;
 here the mesh is a grid of ``torch.device``: the machine's cards, or one
 device named ``n`` times (``device="cpu"``, or one card named repeatedly)
-(``parallel.mesh``). The port has no encoder, so the bitstream check
-decodes the committed ``tests/data/verify_64x64_2f.bin``.
+(``parallel.mesh``). The dry run authors the reference's mesh stream
+with the port's ``build_fixture_stream`` (:func:`dryrun_stream`), as the
+reference does, and serves its HEVC encode and decode from the committed
+video store (``tools.video_store``, entries ``graft_dryrun_d<rows>``), so
+it runs the same way on the CPU and on a card, with or without the
+native video bridge.
 """
 
 from __future__ import annotations
 
 from dataclasses import replace
-from pathlib import Path
 
-VERIFY_STREAM = (Path(__file__).resolve().parent.parent / "tests" / "data"
-                 / "verify_64x64_2f.bin")
+#: the video store's entry of the dry run's stream at ``data`` rows
+DRYRUN_ENTRY = "graft_dryrun_d{data}"
 
 
 def entry(device: str = "cuda"):
@@ -48,6 +51,29 @@ def entry(device: str = "cuda"):
     return partial(reconstruct_planes_packed, cfg=fcfg), args
 
 
+def dryrun_stream(data: int) -> bytes:
+    """The dry run's V3C stream at ``data`` 'data' rows, authored as the
+    reference's dry run authors it: one generator seeded 51, one 64^2
+    synthetic frame per row (occupancy 8/4, two maps, three patches),
+    ``build_fixture_stream(frames, atlas_hash_sei=True)``. The HEVC
+    encodes go through ``utils.fixtures.encode_yuv420``: the bridge's
+    libx265, or the video store's lookup under ``served_encode``."""
+    import numpy as np
+
+    from .utils import fixtures
+    from .utils.synthetic import make_synthetic_frame
+
+    rng = np.random.default_rng(51)
+    sfs = [
+        make_synthetic_frame(
+            rng, width=64, height=64, occupancy_resolution=8,
+            occupancy_precision=4, map_count=2, n_patches=3, frame_index=i,
+        )
+        for i in range(data)  # one frame per 'data' row
+    ]
+    return fixtures.build_fixture_stream(sfs, atlas_hash_sei=True)
+
+
 def _mesh_devices(n_devices: int, device: str):
     import torch
 
@@ -64,9 +90,9 @@ def _mesh_devices(n_devices: int, device: str):
     return [dev] * n_devices
 
 
-def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
+def dryrun_multichip(n_devices: int, device: str = "cuda", store=None) -> None:
     """Run the sharded reconstruction over an ``n_devices`` mesh on tiny
-    shapes, and decode a committed stream through it.
+    shapes, and decode the reference's dry-run stream through it.
 
     The mesh is ('data', 'space'): frames over 'data' and the group axis
     of each frame's field table over 'space' (two shards when
@@ -76,10 +102,17 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
     times. Exercised: the device pack (K5, once per distinct device of a
     data row), the wide path (K2W, K1F), the narrow path (K1), the
     gather drivers, a smoothed step (the grids combined across the
-    shards), and ``Decoder(Params(mesh=...))`` on
-    ``tests/data/verify_64x64_2f.bin`` byte-equal to the oracle; raises
-    AssertionError on a mismatch. The stream decode needs the video
-    bridge (libavcodec)."""
+    shards), and ``Decoder(Params(mesh=...))`` on :func:`dryrun_stream`
+    at the mesh's 'data' rows: one frame per row, each with points,
+    byte-equal to the oracle decode and to the digests of the store's
+    entry; raises AssertionError on a mismatch. The stream's HEVC encode
+    and decode both come from the video store (``served_encode``,
+    ``served``) on every device, never from the native bridge; a row
+    count with no entry raises ``StoreMiss``. ``store``: the
+    ``tools.video_store.VideoStore`` to serve from (by default the
+    committed store, read anew)."""
+    import hashlib
+
     import numpy as np
 
     from .models.flagship import (
@@ -97,10 +130,17 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
         stitch_spatial,
     )
     from .runtime.pipeline import Decoder, Params, _fetch_sharded_packed
+    from .tools.video_store import StoreMiss, VideoStore, served, served_encode
     from .utils.ply import format_ply
 
     space = 2 if n_devices % 2 == 0 and n_devices >= 2 else 1
     data = n_devices // space
+    store = VideoStore() if store is None else store
+    name = DRYRUN_ENTRY.format(data=data)
+    if name not in store.entries:
+        raise StoreMiss(f"the video store {store.root} holds no entry "
+                        f"{name}: the dry run's stream at {data} 'data' rows")
+    entry = store.entries[name]
     mesh = make_mesh(_mesh_devices(n_devices, device), data=data,
                      space=space)
     cfg = FlagshipConfig(
@@ -145,16 +185,26 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
     _, cnt_s, _ = reconstruct_gof_spatial_pretiled(mesh, *staged, smooth)
     assert int(cnt_s.sum()) == total, "smoothing changed the point count"
 
-    # a committed bitstream through Decoder(Params(mesh=...)) against the
-    # oracle decode
-    stream = VERIFY_STREAM.read_bytes()
-    dm = Decoder(Params(stream, mesh=mesh, device=str(mesh.devices[0, 0])))
-    dm.start()
-    sharded = [format_ply(f) for f in dm]
-    dorc = Decoder(Params(stream, use_device=False))
-    dorc.start()
-    oracle = [format_ply(f) for f in dorc]
-    assert len(sharded) == len(oracle) > 0
+    # the reference's stream, authored here, through
+    # Decoder(Params(mesh=...)) against the oracle decode
+    with served_encode(store), served(store):
+        stream = dryrun_stream(data)
+        assert stream == entry.stream.read_bytes(), (
+            f"the dry run's stream differs from the store's {name}")
+        dm = Decoder(Params(stream, mesh=mesh,
+                            device=str(mesh.devices[0, 0])))
+        dm.start()
+        frames = list(dm)
+        dorc = Decoder(Params(stream, use_device=False))
+        dorc.start()
+        oracle = [format_ply(f) for f in dorc]
+    sharded = [format_ply(f) for f in frames]
+    assert len(sharded) == len(oracle) == data, (
+        f"{len(sharded)} mesh and {len(oracle)} oracle frames, want {data}")
     assert sharded == oracle, "mesh bitstream decode differs from the oracle"
+    assert [hashlib.sha256(p).hexdigest() for p in sharded] == [
+        o["sha256"] for o in entry.outputs], (
+        f"mesh bitstream decode differs from the digests of {name}")
+    assert all(len(f) > 0 for f in frames), "a frame has no points"
     assert not dm.stats.counter_totals().get("mesh_fallback_dispatches"), (
         "the stream's dispatches fell back to one device")

@@ -4,8 +4,9 @@ Counterpart of the device functions of ``tpu_vpcc.ops.color``: three
 gathers from the proven offset tables plus int32 arithmetic, bit-equal
 to the reference f64 BT.709 chain. The tables (:func:`color_luts`, with
 the 45 chain deviations the exhaustive check of ``tools/
-verify_color_exact.py`` found) and :func:`g8_from_packed` are copied
-from ``tpu_vpcc.ops.color``.
+verify_color_exact.py`` found), :func:`g8_from_packed` and the numpy
+integer form :func:`convert_yuv10_to_rgb8_lut` are copied from
+``tpu_vpcc.ops.color``.
 ``//`` on torch integer tensors floors like numpy, which the negative
 numerators here rely on; a truncating division would be wrong.
 """
@@ -167,6 +168,22 @@ def g8_from_packed(y, packed):
     minus = ((packed >> 16) >> k) & 1
     plus = ((packed >> 20) >> k) & 1
     return q - minus * (r == 0) + plus * (r == 340)
+
+
+def convert_yuv10_to_rgb8_lut(colors16: np.ndarray) -> np.ndarray:
+    """NumPy integer-form conversion; equals ``convert_yuv10_to_rgb8``
+    (the f64 reference chain) on every input — see the module proof."""
+    s_r, s_b, packed_g = color_luts()
+    y = colors16[:, 0].astype(np.int32)
+    u = colors16[:, 1].astype(np.int32)
+    v = colors16[:, 2].astype(np.int32)
+    y85 = 85 * y
+    out = np.empty((colors16.shape[0], 3), dtype=np.uint8)
+    np.clip((y85 - s_r[v]) // 341, 0, 255, out=out[:, 0], casting="unsafe")
+    np.clip(g8_from_packed(y, packed_g[u, v]), 0, 255, out=out[:, 1],
+            casting="unsafe")
+    np.clip((y85 - s_b[u]) // 341, 0, 255, out=out[:, 2], casting="unsafe")
+    return out
 
 
 @functools.lru_cache(maxsize=None)

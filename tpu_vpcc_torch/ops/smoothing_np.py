@@ -4,7 +4,9 @@ Copied from ``tpu_vpcc.ops.smoothing`` (its numpy half): the shared
 integer algorithm of :func:`_smooth_core` and :func:`_smooth_color_core`
 run with numpy, :func:`smooth_slots_np` and :func:`smooth_colors_np` on
 one frame's flat arrays. The oracle decode path applies them; the
-device path's PyTorch transcription is :mod:`.smoothing`.
+device path's PyTorch transcription is :mod:`.smoothing`. Also copied
+from there: :func:`smooth_slots_f64` and :func:`smooth_colors_f64`, the
+TMC2-faithful f64 comparison oracles, which no decode path runs.
 """
 
 from __future__ import annotations
@@ -233,3 +235,154 @@ def smooth_colors_np(xs, ys, zs, cy, cu, cv, valid, pid,
         np.asarray(cu, np.int32), np.asarray(cv, np.int32),
         np.asarray(valid), np.asarray(pid, np.int32), z, 1, cfg, scatter,
     )
+
+
+def smooth_slots_f64(xs, ys, zs, valid, pid, cfg: SmoothingConfig):
+    """TMC2-v18-faithful f64 smoothing oracle (single frame, flat arrays).
+
+    Same cell decomposition, neighborhood, integer trilinear weights, and
+    other-cluster gate as the int32 spec, but with TMC2's floating-point
+    arithmetic: per-cell centroids are f64 averages (``sum / count``), the
+    trilinear blend divides in f64, the squared-distance test runs in
+    f64, and the moved point is rounded half-up to the integer lattice.
+    This is the comparison target used to quantify how far the
+    framework's pure-int32 spec (:func:`smooth_slots_np`) diverges from
+    TMC2's ``smoothPointCloudGrid`` semantics — the reference itself
+    panics before smoothing (``src/decoder.rs:291-293``),
+    so there is no bitstream-parity constraint; divergence bounds are
+    recorded in PERFORMANCE.md. Not used on the production path.
+    """
+    gs, gw = cfg.grid_size, cfg.grid_width
+    n_cells = gw * gw * gw
+
+    xs = np.asarray(xs, np.int64)
+    ys = np.asarray(ys, np.int64)
+    zs = np.asarray(zs, np.int64)
+    pid = np.asarray(pid, np.int32)
+    v = np.asarray(valid).astype(bool)
+
+    cid = (zs // gs) * (gw * gw) + (ys // gs) * gw + (xs // gs)
+    cid = np.clip(cid, 0, n_cells - 1)
+
+    counts = np.zeros(n_cells, np.int64)
+    np.add.at(counts, cid, v.astype(np.int64))
+    cen = np.zeros((n_cells, 3), np.float64)
+    for k, a in enumerate((xs, ys, zs)):
+        s = np.zeros(n_cells, np.int64)
+        np.add.at(s, cid, np.where(v, a, 0))
+        cen[:, k] = s / np.maximum(counts, 1)  # f64 average (TMC2 center)
+    min_p = np.full(n_cells, _BIG, np.int32)
+    np.minimum.at(min_p, cid, np.where(v, pid, _BIG))
+    max_p = np.full(n_cells, -_BIG, np.int32)
+    np.maximum.at(max_p, cid, np.where(v, pid, -_BIG))
+
+    sx, wx_hi, okx = _axis_neighborhood(np, xs, gs, gw)
+    sy, wy_hi, oky = _axis_neighborhood(np, ys, gs, gw)
+    sz, wz_hi, okz = _axis_neighborhood(np, zs, gs, gw)
+    in_range = okx & oky & okz
+    sx = np.clip(sx, 0, gw - 2)
+    sy = np.clip(sy, 0, gw - 2)
+    sz = np.clip(sz, 0, gw - 2)
+
+    V = np.zeros((xs.shape[0], 3), np.float64)
+    W = np.zeros(xs.shape[0], np.float64)
+    other = np.zeros(xs.shape[0], bool)
+    for dz in (0, 1):
+        wz = wz_hi if dz else 2 * gs - wz_hi
+        for dy in (0, 1):
+            wy = wy_hi if dy else 2 * gs - wy_hi
+            for dx in (0, 1):
+                wx = wx_hi if dx else 2 * gs - wx_hi
+                nid = (sz + dz) * (gw * gw) + (sy + dy) * gw + (sx + dx)
+                has = counts[nid] > 0
+                w = (wx * wy * wz).astype(np.float64) * has
+                V += w[:, None] * cen[nid]
+                W += w
+                other |= has & ((min_p[nid] != pid) | (max_p[nid] != pid))
+
+    W_safe = np.maximum(W, 1.0)
+    c = V / W_safe[:, None]
+    cur = np.stack([xs, ys, zs], axis=1).astype(np.float64)
+    dist2 = ((cur - c) ** 2).sum(axis=1)
+    move = v & in_range & other & (W > 0) & (dist2 >= cfg.threshold)
+
+    out = np.where(move[:, None], np.floor(c + 0.5), cur)
+    return out[:, 0].astype(np.int32), out[:, 1].astype(np.int32), out[:, 2].astype(np.int32)
+
+
+def smooth_colors_f64(xs, ys, zs, cy, cu, cv, valid, pid,
+                      cfg: AttrSmoothingConfig):
+    """TMC2-style f64 color-smoothing oracle (single frame, flat arrays).
+
+    Float analog of :func:`smooth_colors_np`: f64 per-cell luma/chroma
+    centroids, f64 trilinear blend, f64 gates (luma spread of occupied
+    neighbor cells ≤ threshold_variation AND |luma − blend| ≥
+    threshold_difference), blended color rounded half-up. Comparison
+    target only; divergence vs the int32 spec recorded in PERFORMANCE.md.
+    """
+    gs, gw = cfg.grid_size, cfg.grid_width
+    n_cells = gw * gw * gw
+
+    xs = np.asarray(xs, np.int64)
+    ys = np.asarray(ys, np.int64)
+    zs = np.asarray(zs, np.int64)
+    cols = np.stack([np.asarray(cy, np.int64), np.asarray(cu, np.int64),
+                     np.asarray(cv, np.int64)], axis=1)
+    pid = np.asarray(pid, np.int32)
+    v = np.asarray(valid).astype(bool)
+
+    cid = (zs // gs) * (gw * gw) + (ys // gs) * gw + (xs // gs)
+    cid = np.clip(cid, 0, n_cells - 1)
+
+    counts = np.zeros(n_cells, np.int64)
+    np.add.at(counts, cid, v.astype(np.int64))
+    cen = np.zeros((n_cells, 3), np.float64)
+    for k in range(3):
+        s = np.zeros(n_cells, np.int64)
+        np.add.at(s, cid, np.where(v, cols[:, k], 0))
+        cen[:, k] = s / np.maximum(counts, 1)
+    min_p = np.full(n_cells, _BIG, np.int32)
+    np.minimum.at(min_p, cid, np.where(v, pid, _BIG))
+    max_p = np.full(n_cells, -_BIG, np.int32)
+    np.maximum.at(max_p, cid, np.where(v, pid, -_BIG))
+
+    sx, wx_hi, okx = _axis_neighborhood(np, xs, gs, gw)
+    sy, wy_hi, oky = _axis_neighborhood(np, ys, gs, gw)
+    sz, wz_hi, okz = _axis_neighborhood(np, zs, gs, gw)
+    in_range = okx & oky & okz
+    sx = np.clip(sx, 0, gw - 2)
+    sy = np.clip(sy, 0, gw - 2)
+    sz = np.clip(sz, 0, gw - 2)
+
+    V = np.zeros((xs.shape[0], 3), np.float64)
+    W = np.zeros(xs.shape[0], np.float64)
+    other = np.zeros(xs.shape[0], bool)
+    y_min = np.full(xs.shape[0], np.inf)
+    y_max = np.full(xs.shape[0], -np.inf)
+    for dz in (0, 1):
+        wz = wz_hi if dz else 2 * gs - wz_hi
+        for dy in (0, 1):
+            wy = wy_hi if dy else 2 * gs - wy_hi
+            for dx in (0, 1):
+                wx = wx_hi if dx else 2 * gs - wx_hi
+                nid = (sz + dz) * (gw * gw) + (sy + dy) * gw + (sx + dx)
+                has = counts[nid] > 0
+                w = (wx * wy * wz).astype(np.float64) * has
+                V += w[:, None] * cen[nid]
+                W += w
+                other |= has & ((min_p[nid] != pid) | (max_p[nid] != pid))
+                y_min = np.minimum(y_min, np.where(has, cen[nid, 0], np.inf))
+                y_max = np.maximum(y_max, np.where(has, cen[nid, 0], -np.inf))
+
+    W_safe = np.maximum(W, 1.0)
+    b = V / W_safe[:, None]
+    spread = np.where(np.isfinite(y_max - y_min), y_max - y_min, 0.0)
+    dev = np.abs(cols[:, 0].astype(np.float64) - b[:, 0])
+    move = (
+        v & in_range & other & (W > 0)
+        & (spread <= cfg.threshold_variation)
+        & (dev >= cfg.threshold_difference)
+    )
+    out = np.where(move[:, None], np.floor(b + 0.5), cols.astype(np.float64))
+    return (out[:, 0].astype(np.int32), out[:, 1].astype(np.int32),
+            out[:, 2].astype(np.int32))

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 from typing import List
 
+import numpy as np
+
 from .codec import VideoFrame, decode_annexb, encode_yuv420, encoder_supports  # noqa: F401
 from .substream import sample_stream_to_bytestream
 
@@ -29,3 +31,30 @@ def decompress_video(
         else data
     )
     return decode_annexb(annexb, codec_id, tile=tile)
+
+
+def occupancy_planes(frames: List[VideoFrame]) -> np.ndarray:
+    """Stack occupancy Y planes into (n, h, w) uint8.
+
+    The reference asserts occupancy_2d_bitdepth_minus1 == 7 and no MSB
+    alignment (``src/decoder.rs:94-95``); here that manifests as an 8-bit
+    decode check.
+    """
+    if frames and frames[0].bit_depth != 8:
+        raise ValueError(f"occupancy video must be 8-bit, got {frames[0].bit_depth}")
+    return np.stack([f.planes[0] for f in frames])
+
+
+def geometry_planes(frames: List[VideoFrame]) -> np.ndarray:
+    """Stack geometry Y planes into (n, h, w) uint16.
+
+    Geometry/attribute streams decode as 10-bit planes; the depth consumer
+    divides by 4 (reference ``src/codec.rs:532-534``). An 8-bit decode is
+    widened with a flag of shift 0 handled downstream.
+    """
+    return np.stack([f.planes[0].astype(np.uint16, copy=False) for f in frames])
+
+
+def attribute_planes(frames: List[VideoFrame]) -> List[List[np.ndarray]]:
+    """Per-frame [y, u, v] uint16 planes (YUV420) for attribute sampling."""
+    return [[p.astype(np.uint16, copy=False) for p in f.planes] for f in frames]

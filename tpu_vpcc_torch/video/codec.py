@@ -63,6 +63,8 @@ def _load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_LIB_PATH))
         lib.vdec_open.restype = ctypes.c_void_p
         lib.vdec_open.argtypes = [ctypes.c_int]
+        lib.vdec_open_threads.restype = ctypes.c_void_p
+        lib.vdec_open_threads.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.vdec_decode.restype = ctypes.c_int
         lib.vdec_decode.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64]
         lib.vdec_frame_count.restype = ctypes.c_int
@@ -89,6 +91,11 @@ def _load() -> ctypes.CDLL:
             ctypes.c_int,
             ctypes.c_void_p,
             ctypes.c_int64,
+        ]
+        lib.vdec_thread_info.restype = ctypes.c_int
+        lib.vdec_thread_info.argtypes = [
+            ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_int),
         ]
         lib.vdec_error.restype = ctypes.c_char_p
         lib.vdec_error.argtypes = [ctypes.c_void_p]
@@ -263,6 +270,26 @@ def decode_annexb(
                 )
             )
         return frames
+    finally:
+        lib.vdec_close(handle)
+
+
+def decoder_thread_info(codec_id: int = 1, threads: int = 0):
+    """(resolved thread_count, active_thread_type bits) of a freshly
+    opened decoder — 1 = frame threading, 2 = slice threading. Evidence
+    that the host decode parallelizes on multi-core machines (this
+    container has 1 core, so the auto-resolved count is 1 here; pass an
+    explicit ``threads`` to assert the frame-threading request survives
+    regardless of host core count)."""
+    lib = _load()
+    handle = lib.vdec_open_threads(codec_id, threads)
+    if not handle:
+        raise VideoDecodeError("failed to open native decoder")
+    try:
+        info = (ctypes.c_int * 2)()
+        if lib.vdec_thread_info(handle, info) != 0:
+            raise VideoDecodeError("thread info query failed")
+        return int(info[0]), int(info[1])
     finally:
         lib.vdec_close(handle)
 
