@@ -1,0 +1,8 @@
+"""PointSet3 emission (``reconstruction``): the ``recon_emit`` span, ms
+per frame."""
+
+from vpcc_bench.readers import span_ms_per_frame
+
+
+def read(record):
+    return span_ms_per_frame(record, "recon_emit")
