@@ -49,6 +49,7 @@ from __future__ import annotations
 import logging
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
 from dataclasses import dataclass, replace
@@ -62,7 +63,7 @@ from ..atlas.atlas_hash import collect_daih_by_frame, verify_frame_hashes
 from ..atlas.patches import create_patch_frames
 from ..bitio import Bitstream
 from ..reconstruction.pointset import PointSet3
-from ..utils.stats import DecodeStats, stage_timer
+from ..utils.stats import DecodeStats, record_span, stage_timer
 from ..v3c.context import Context
 from ..v3c.stream import SampleStreamV3CUnit
 from ..v3c.syntax import UnsupportedFeature, VideoType
@@ -196,7 +197,9 @@ class Decoder:
             if self._error is not None:
                 raise self._error
             return None
-        return item
+        frame, gs, t_put_ns = item
+        record_span(gs, "emit_handoff", t_put_ns)
+        return frame
 
     def __iter__(self) -> Iterator[PointSet3]:
         while True:
@@ -233,25 +236,20 @@ class Decoder:
                     ),
                     stats=gs,
                 )
-            for vt, vbs in (
-                ("occ", context.get_video_bitstream(VideoType.OCCUPANCY)),
-                ("geo", context.get_video_bitstream(VideoType.GEOMETRY)),
-                ("attr", context.get_video_bitstream(VideoType.ATTRIBUTE)),
-            ):
-                if vbs is not None:
-                    gs.video_bytes[vt] = len(vbs.data)
             yield gof, gs
 
     def _decode_loop(self, items) -> None:
         """Host preparation of GOF k+1 (``items``, pulled on one
         prefetch thread) overlaps the reconstruction of GOF k; frames
-        emit in order."""
+        emit in order. Spans: ``emit_hold`` from a GOF's reconstruction's
+        end to its first ``put``, ``emit_handoff`` (recorded by
+        :meth:`recv_frame`) from a frame's ``put`` to its receipt."""
         try:
             def prep_next():
                 return None if self._stop.is_set() else next(items, None)
 
             def do_recon(gof, gs):
-                with stage_timer(gs, "reconstruct"):
+                with stage_timer(gs, "reconstruct") as span:
                     frames = list(
                         _reconstruct_gof_device(gof, self._device, stats=gs,
                                                 mesh=self.params.mesh)
@@ -260,14 +258,17 @@ class Decoder:
                     )
                 gs.frame_count = len(frames)
                 gs.total_points = sum(len(f) for f in frames)
-                log.debug("%s", gs.summary())
-                return frames
+                if log.isEnabledFor(logging.DEBUG):
+                    log.debug("%s", gs.summary())
+                return frames, gs, span.end_ns
 
-            def emit(frames) -> bool:
+            def emit(done) -> bool:
+                frames, gs, recon_end_ns = done
+                record_span(gs, "emit_hold", recon_end_ns)
                 for frame in frames:
                     if self._stop.is_set():
                         return False
-                    self._queue.put(frame)
+                    self._queue.put((frame, gs, time.perf_counter_ns()))
                 return True
 
             depth = max(1, int(self.params.pipeline_gofs))
@@ -1472,8 +1473,15 @@ def _dispatch_device(di: DeviceInputs, device, stats=None, mesh=None):
     else:
         layout, dispatch = "wide", reconstruct_batch_pretiled
     with _st(stats, "recon_dispatch"):
-        ops, counts = dispatch(*di.on_device(device), di.cfg)
-        counts = counts.cpu().numpy()  # device sync
+        with _st(stats, "recon_h2d"):
+            inputs = di.on_device(device)
+        if stats is not None:  # on_device sends every staged array
+            stats.count("h2d_bytes", sum(a.nbytes for a in di.arrays))
+        with _st(stats, "recon_enqueue"):
+            ops, counts = dispatch(*inputs, di.cfg)
+        del inputs  # free the device inputs before the sync and fetch
+        with _st(stats, "recon_sync"):
+            counts = counts.cpu().numpy()  # device sync
     with _st(stats, "recon_fetch"):
         pos_all, col_all = _fetch_prefixes_packed(
             ops, counts, color_mode=di.color_mode, layout=layout
