@@ -1,7 +1,8 @@
 """The port's stage spans and counters (``tpu_vpcc_torch.utils.stats``):
 the span record, its parents and GOF ids, the dispatch split into H2D,
 enqueue and sync, the H2D byte counter, the decode loop's hold and the
-frame hand-off, the bound on kept spans, and ``stage_seconds`` written
+frame hand-off, its emission of a GOF as soon as it is reconstructed
+(``emit_early``), the bound on kept spans, and ``stage_seconds`` written
 once a span, at its end."""
 
 import logging
@@ -15,6 +16,7 @@ import pytest
 from tpu_vpcc_torch.runtime import pipeline
 from tpu_vpcc_torch.runtime.pipeline import Decoder, Params
 from tpu_vpcc_torch.utils import stats as S
+from tpu_vpcc_torch.utils.ply import format_ply
 from tpu_vpcc_torch.utils.stats import (
     SPAN_GOFS,
     DecodeStats,
@@ -24,6 +26,10 @@ from tpu_vpcc_torch.utils.stats import (
 )
 
 DISPATCH_CHILDREN = ("recon_h2d", "recon_enqueue", "recon_sync")
+#: frames in a GOF of :func:`_gofs`
+GOF_FRAMES = 4
+#: the longest a test's feed or reconstruction waits on another thread
+GATE_S = 20.0
 
 
 def _gofs(n=2, seed=5):
@@ -131,6 +137,165 @@ def test_one_hold_a_gof_and_one_handoff_a_frame(decoded):
         assert all(s.parent is None and s.cpu_ns is None
                    for s in holds + handoffs)
         assert holds[0].thread != threading.get_ident()
+
+
+@pytest.fixture(scope="module")
+def plain3():
+    """The PLY bytes of three GOFs of :func:`_gofs` decoded one GOF at a
+    time (``pipeline_gofs=1``)."""
+    _dec, frames = _decode(_gofs(3), pipeline_gofs=1)
+    return [format_ply(f) for f in frames]
+
+
+def _gated(gofs, gate, before, met):
+    """Yield ``gofs`` in turn, waiting on ``gate`` (at most
+    :data:`GATE_S`) before ``gofs[before]``; ``met`` gets whether the wait
+    ended by the gate."""
+    for k, gof in enumerate(gofs):
+        if k == before:
+            met.append(gate.wait(GATE_S))
+        yield gof
+
+
+def test_a_list_feed_emits_after_the_next_gof_as_before(decoded):
+    """With every item waiting (a list, as the warm-up feeds), the next
+    GOF is always there first: no GOF counts ``emit_early``."""
+    dec, _frames, _seen = decoded
+    assert [g.counters["emit_early"] for g in dec.stats.gofs] == [0, 0]
+
+
+def test_a_gof_is_emitted_before_the_next_one_arrives(plain3):
+    """GOF 1 is handed over only once GOF 0's frames are all received: a
+    loop that holds GOF 0 until GOF 1 arrives waits out the gate."""
+    arrived, met = threading.Event(), []
+    dec = Decoder(Params(device="cpu", pipeline_gofs=2))
+    dec.start_gofs(_gated(_gofs(), arrived, 1, met))
+    frames = []
+    for frame in dec:
+        frames.append(frame)
+        if len(frames) == GOF_FRAMES:
+            arrived.set()
+    assert met == [True]
+    for g in dec.stats.gofs:
+        hold = next(s for s in g.spans if s.name == "emit_hold")
+        assert hold.end_ns - hold.start_ns < GATE_S / 10 * 1e9
+    assert dec.stats.gofs[0].counters["emit_early"] == 1
+    assert [format_ply(f) for f in frames] == plain3[:2 * GOF_FRAMES]
+
+
+@pytest.mark.parametrize("depth", [2, 3])
+def test_frames_keep_gof_order_when_a_later_gof_ends_first(monkeypatch,
+                                                          plain3, depth):
+    """GOF 0's reconstruction waits until GOF 1's has ended, and GOF 2 is
+    handed over once GOF 1's frames are received: the frames still come
+    in GOF order, and GOF 1 goes out before GOF 2 arrives."""
+    orig = pipeline._reconstruct_gof_device
+    gof1_done, arrived = threading.Event(), threading.Event()
+    waited, met = [], []
+
+    def recon(gof, device, stats=None, mesh=None):
+        if stats.gof_index == 0:
+            waited.append(gof1_done.wait(GATE_S))
+        frames = list(orig(gof, device, stats=stats, mesh=mesh))
+        if stats.gof_index == 1:
+            gof1_done.set()
+        return frames
+
+    monkeypatch.setattr(pipeline, "_reconstruct_gof_device", recon)
+    dec = Decoder(Params(device="cpu", pipeline_gofs=depth))
+    dec.start_gofs(_gated(_gofs(3), arrived, 2, met))
+    frames = []
+    for frame in dec:
+        frames.append(frame)
+        if len(frames) == 2 * GOF_FRAMES:
+            arrived.set()
+    assert waited == [True] and met == [True]
+    assert [format_ply(f) for f in frames] == plain3
+    assert dec.stats.gofs[1].counters["emit_early"] == 1
+
+
+def test_close_while_the_next_gof_is_awaited_still_ends_the_stream():
+    """The receiver drops the decoder after GOF 0's first frame, while
+    the feed holds GOF 1 back: the stream still ends with the sentinel."""
+    gate, met = threading.Event(), []
+    dec = Decoder(Params(device="cpu", pipeline_gofs=2, queue_depth=1))
+    dec.start_gofs(_gated(_gofs(), gate, 1, met))
+    assert dec.recv_frame() is not None
+    dec.close()
+    gate.set()
+    dec._thread.join(timeout=120)
+    assert not dec._thread.is_alive()
+    got = dec.recv_frame()
+    while got is not None:
+        got = dec.recv_frame()
+    assert dec.recv_frame() is None
+
+
+def test_a_slow_consumer_does_not_hold_back_the_next_gof(monkeypatch):
+    """A GOF arrives every ``P`` s, reconstructs in ``R`` and its frames
+    are taken ``c`` s apart: emitting GOF k (which blocks on the bounded
+    queue) must not keep GOF k+1 waiting for its reconstruction, so the
+    stream ends as soon as when the loop submitted GOF k+1 before
+    emitting GOF k: about ``n P + R + 4 c``. A loop that takes the next
+    GOF only between emissions needs ``R + 2 c`` a GOF instead of ``P``,
+    0.56 s more here."""
+    n, P, R, c = 8, 0.25, 0.2, 0.06
+    starts, arrivals = [], []
+
+    def recon(gof, device, stats=None, mesh=None):
+        starts.append(time.perf_counter())
+        time.sleep(R)
+        return [()] * GOF_FRAMES
+
+    def feed():
+        for _ in range(n):
+            time.sleep(P)
+            arrivals.append(time.perf_counter())
+            yield object()
+
+    monkeypatch.setattr(pipeline, "_reconstruct_gof_device", recon)
+    dec = Decoder(Params(device="cpu", pipeline_gofs=2, queue_depth=1))
+    t0 = time.perf_counter()
+    dec.start_gofs(feed())
+    got = 0
+    for _ in dec:
+        got += 1
+        time.sleep(c)
+    total = time.perf_counter() - t0
+    assert got == n * GOF_FRAMES
+    assert total < n * P + R + GOF_FRAMES * c + 0.25
+    # the slowest wait from a GOF's arrival to its reconstruction's start
+    assert max(s - a for s, a in zip(starts, arrivals)) < 0.05 + c
+
+
+@pytest.mark.parametrize("where", ["feed", "recon"])
+def test_an_error_ends_the_stream_after_the_gofs_before_it(monkeypatch,
+                                                           plain3, where):
+    """GOF 1 fails, in the feed or in its reconstruction: GOF 0's frames
+    come out, then the receiver gets the error and the stream ends."""
+    orig = pipeline._reconstruct_gof_device
+
+    def recon(gof, device, stats=None, mesh=None):
+        if stats.gof_index == 1:
+            raise ValueError("GOF 1")
+        return orig(gof, device, stats=stats, mesh=mesh)
+
+    def feed():
+        gofs = _gofs(3)
+        yield gofs[0]
+        raise ValueError("GOF 1")
+
+    if where == "recon":
+        monkeypatch.setattr(pipeline, "_reconstruct_gof_device", recon)
+    dec = Decoder(Params(device="cpu", pipeline_gofs=2))
+    dec.start_gofs(feed() if where == "feed" else _gofs(3))
+    frames = [dec.recv_frame() for _ in range(GOF_FRAMES)]
+    with pytest.raises(ValueError, match="GOF 1"):
+        dec.recv_frame()
+    assert dec.recv_frame() is None
+    dec._thread.join(timeout=120)
+    assert not dec._thread.is_alive()
+    assert [format_ply(f) for f in frames] == plain3[:GOF_FRAMES]
 
 
 def test_h2d_bytes_count_the_staged_arrays(decoded):

@@ -239,15 +239,22 @@ class Decoder:
             yield gof, gs
 
     def _decode_loop(self, items) -> None:
-        """Host preparation of GOF k+1 (``items``, pulled on one
-        prefetch thread) overlaps the reconstruction of GOF k; frames
-        emit in order. Spans: ``emit_hold`` from a GOF's reconstruction's
-        end to its first ``put``, ``emit_handoff`` (recorded by
-        :meth:`recv_frame`) from a frame's ``put`` to its receipt."""
+        """A feeder, on one prefetch thread, pulls ``items`` and submits
+        each GOF's reconstruction as soon as it has arrived and one of
+        ``pipeline_gofs`` slots is free; this thread emits the GOFs in
+        order and frees a GOF's slot after its last ``put``. So a GOF is
+        emitted as soon as its reconstruction ends and the GOFs before it
+        are out, not when the next GOF arrives, and host preparation of
+        GOF k+1 overlaps the reconstruction of GOF k and the emission of
+        the GOFs before it. At most ``pipeline_gofs`` GOFs are between
+        submission and the end of their emission. A GOF emitted before
+        the next item (or the end of ``items``) has arrived counts
+        ``emit_early`` 1, any other GOF 0. An error of ``items`` is
+        raised after the GOFs before it are out. Spans: ``emit_hold``
+        from a GOF's reconstruction's end to its first ``put``,
+        ``emit_handoff`` (recorded by :meth:`recv_frame`) from a frame's
+        ``put`` to its receipt."""
         try:
-            def prep_next():
-                return None if self._stop.is_set() else next(items, None)
-
             def do_recon(gof, gs):
                 with stage_timer(gs, "reconstruct") as span:
                     frames = list(
@@ -262,9 +269,10 @@ class Decoder:
                     log.debug("%s", gs.summary())
                 return frames, gs, span.end_ns
 
-            def emit(done) -> bool:
+            def emit(done, early: bool) -> bool:
                 frames, gs, recon_end_ns = done
                 record_span(gs, "emit_hold", recon_end_ns)
+                gs.count("emit_early", int(early))
                 for frame in frames:
                     if self._stop.is_set():
                         return False
@@ -272,23 +280,42 @@ class Decoder:
                 return True
 
             depth = max(1, int(self.params.pipeline_gofs))
-            with ThreadPoolExecutor(max_workers=1) as prefetcher, \
-                    ThreadPoolExecutor(max_workers=depth) as recon_exec:
-                pending = prefetcher.submit(prep_next)
-                in_flight = []  # recon futures, GOF order
-                while True:
-                    item = pending.result()
-                    if item is None:
-                        break
-                    gof, gs = item
-                    pending = prefetcher.submit(prep_next)
-                    in_flight.append(recon_exec.submit(do_recon, gof, gs))
-                    while len(in_flight) >= depth:
-                        if not emit(in_flight.pop(0).result()):
+            slots = threading.Semaphore(depth)
+            ready = queue.SimpleQueue()  # recon futures in GOF order, None
+            emit_over = threading.Event()  # this thread emits no more
+            arrived = 0  # items pulled, the end included
+
+            def feed(recon_exec):
+                nonlocal arrived
+                try:
+                    while not (self._stop.is_set() or emit_over.is_set()):
+                        item = next(items, None)
+                        arrived += 1
+                        if item is None:
                             return
-                for fut in in_flight:
-                    if not emit(fut.result()):
-                        return
+                        slots.acquire()
+                        if emit_over.is_set():
+                            return
+                        ready.put(recon_exec.submit(do_recon, *item))
+                finally:
+                    ready.put(None)
+
+            # the prefetcher ends (and submits nothing more) first
+            with ThreadPoolExecutor(max_workers=depth) as recon_exec, \
+                    ThreadPoolExecutor(max_workers=1) as prefetcher:
+                feeder = prefetcher.submit(feed, recon_exec)
+                try:
+                    emitted = 0
+                    while (fut := ready.get()) is not None:
+                        done = fut.result()
+                        emitted += 1
+                        if not emit(done, early=arrived <= emitted):
+                            return
+                        slots.release()
+                    feeder.result()  # the error of ``items``, if any
+                finally:
+                    emit_over.set()
+                    slots.release()  # a feeder waiting on a slot sees it
         except BaseException as e:  # surfaced on the consumer side
             log.exception("decode thread failed")
             self._error = e

@@ -57,7 +57,9 @@ class GofStats:
     stage_seconds: Dict[str, float] = field(default_factory=dict)
     #: event counters (e.g. ``mesh_fallback_dispatches`` when a
     #: mesh-configured decode degraded to single-device, ``h2d_bytes``
-    #: the bytes of the dispatches' staged arrays sent to the device)
+    #: the bytes of the dispatches' staged arrays sent to the device,
+    #: ``emit_early`` 1 where the decode loop emitted the GOF while it
+    #: still awaited the next one, else 0)
     counters: Dict[str, int] = field(default_factory=dict)
     #: the GOF's spans in the order they ended; None once dropped
     #: (:data:`SPAN_GOFS`)
