@@ -1,6 +1,7 @@
 """The port's stage spans and counters (``tpu_vpcc_torch.utils.stats``):
 the span record, its parents and GOF ids, the dispatch split into H2D,
-enqueue and sync, the H2D byte counter, the decode loop's hold and the
+enqueue and sync, the H2D byte counter, the wide path's smoothing span
+and slot counter (absent on the narrow path), the decode loop's hold and the
 frame hand-off, its emission of a GOF as soon as it is reconstructed
 (``emit_early``), the bound on kept spans, and ``stage_seconds`` written
 once a span, at its end."""
@@ -12,6 +13,7 @@ import time
 from pathlib import Path
 
 import pytest
+import torch
 
 from tpu_vpcc_torch.runtime import pipeline
 from tpu_vpcc_torch.runtime.pipeline import Decoder, Params
@@ -304,6 +306,109 @@ def test_h2d_bytes_count_the_staged_arrays(decoded):
     assert {st for _, st, _ in seen} == {"device_pack"}
     # the CPU tensors that cross hold the same bytes as the staged arrays
     assert all(b == crossing for b, _, crossing in seen)
+
+
+def _wide_gofs(n=2, seed=5):
+    """:func:`_gofs` with geometry and colour smoothing set: every
+    dispatch takes the wide path."""
+    from dataclasses import replace
+
+    from tpu_vpcc_torch.models.flagship import ATTR_SMOOTHING, GEO_SMOOTHING
+
+    return [replace(g, geo_smoothing=GEO_SMOOTHING,
+                    attr_smoothing=ATTR_SMOOTHING) for g in _gofs(n, seed)]
+
+
+def _decode_seeing_smoothing(gofs, mesh=None):
+    """Decode ``gofs``, with the (frames, slot extent) of every shard that
+    the wide path's smoothing receives."""
+    from tpu_vpcc_torch.ops import tiled
+
+    seen = []
+    orig = tiled.smooth_words_shards
+
+    def smooth(shards, cfg, combine=None):
+        seen.extend(tuple(s[4].shape) for s in shards)
+        return orig(shards, cfg, combine)
+
+    tiled.smooth_words_shards = smooth
+    try:
+        dec = Decoder(Params(device="cpu", mesh=mesh))
+        dec.start_gofs(gofs)
+        frames = list(dec)
+    finally:
+        tiled.smooth_words_shards = orig
+    return dec, frames, seen
+
+
+@pytest.fixture(scope="module")
+def decoded_wide():
+    return _decode_seeing_smoothing(_wide_gofs())
+
+
+def _inside(span, spans):
+    return [s for s in spans if s.thread == span.thread and s is not span
+            and span.start_ns <= s.start_ns <= s.end_ns <= span.end_ns]
+
+
+def test_wide_dispatch_smooths_inside_its_enqueue(decoded_wide):
+    """One ``recon_smooth`` a wide dispatch, a child of ``recon_enqueue``;
+    the dispatch's own children are as on the narrow path."""
+    dec, frames, _seen = decoded_wide
+    assert len(frames) == 2 * GOF_FRAMES
+    for g in dec.stats.gofs:
+        dispatches = [s for s in g.spans if s.name == "recon_dispatch"]
+        assert len(dispatches) == 2
+        for d in dispatches:
+            children = [s for s in _inside(d, g.spans)
+                        if s.parent == "recon_dispatch"]
+            assert [s.name for s in sorted(children,
+                                           key=lambda s: s.start_ns)] == list(
+                DISPATCH_CHILDREN)
+            enqueue = next(s for s in children if s.name == "recon_enqueue")
+            smooth = [s for s in _inside(d, g.spans)
+                      if s.name == "recon_smooth"]
+            assert len(smooth) == 1 and smooth[0].parent == "recon_enqueue"
+            assert smooth[0] in _inside(enqueue, g.spans)
+        assert sum(s.name == "recon_smooth" for s in g.spans) == 2
+        assert g.stage_seconds["recon_smooth"] > 0
+
+
+def test_smooth_slots_count_frames_times_slot_extent(decoded_wide):
+    dec, _frames, seen = decoded_wide
+    assert sum(f for f, _ in seen) == 2 * GOF_FRAMES
+    slots = sum(f * s for f, s in seen)
+    assert dec.stats.counter_totals()["smooth_slots"] == slots
+    # a group's slots: two maps of res x res pixels
+    assert all(s % (2 * 16 * 16) == 0 for _, s in seen)
+
+
+def test_narrow_path_records_no_smoothing(decoded):
+    dec, _frames, _seen = decoded
+    for g in dec.stats.gofs:
+        assert not any(s.name == "recon_smooth" for s in g.spans)
+        assert "recon_smooth" not in g.stage_seconds
+        assert "smooth_slots" not in g.counters
+
+
+def test_mesh_dispatch_smooths_inside_the_dispatch():
+    """On a mesh of two shards (the CPU twice) each wide dispatch has one
+    ``recon_smooth`` over both shards, under ``recon_dispatch``, and
+    ``smooth_slots`` counts both shards' slots."""
+    from tpu_vpcc_torch.parallel import mesh as port_mesh
+
+    mesh = port_mesh.make_mesh([torch.device("cpu")] * 2, data=1, space=2)
+    dec, frames, seen = _decode_seeing_smoothing(_wide_gofs(n=1), mesh=mesh)
+    _plain, plain_frames, _ = _decode_seeing_smoothing(_wide_gofs(n=1))
+    assert [format_ply(f) for f in frames] == [format_ply(f)
+                                               for f in plain_frames]
+    assert "mesh_fallback_dispatches" not in dec.stats.counter_totals()
+    (g,) = dec.stats.gofs
+    smooth = [s for s in g.spans if s.name == "recon_smooth"]
+    assert len(smooth) == 2 and all(s.parent == "recon_dispatch"
+                                    for s in smooth)
+    assert len(seen) == 4  # two dispatches of two shards
+    assert g.counters["smooth_slots"] == sum(f * s for f, s in seen)
 
 
 def test_frames_and_end_of_stream_unchanged_by_the_handoff(decoded):

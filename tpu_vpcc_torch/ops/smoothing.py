@@ -79,17 +79,20 @@ def _axis_neighborhood(coord, gs: int, gw: int):
     return s, w_hi, in_range
 
 
-def _cells(xs, ys, zs, frame, n_frames: int, gs: int, gw: int):
-    """Each slot's frame cell base and clipped cell id, int64."""
+def _cells(xs, ys, zs, frame, gs: int, gw: int):
+    """Each slot's cell id over all frames' grids, int64. The id within the
+    frame is clipped to the frame's own cells before the base is added,
+    as the per-frame oracle clips it: a point on the grid's far edge
+    (a coordinate of ``gs * gw``) stays in its own frame's last cell
+    and never lands in the next frame's grid."""
     n_cells = gw * gw * gw
     base = frame * n_cells
-    cid = (
-        base
-        + (zs // gs).to(torch.int64) * (gw * gw)
+    local = (
+        (zs // gs).to(torch.int64) * (gw * gw)
         + (ys // gs).to(torch.int64) * gw
         + (xs // gs).to(torch.int64)
     )
-    return base, cid.clamp(0, n_frames * n_cells - 1)
+    return base + local.clamp(0, n_cells - 1)
 
 
 def _scatter(cid, v, a, b, c, p, n_total: int):
@@ -140,7 +143,7 @@ def _stats(xs, ys, zs, a, b, c, valid, pid, frame, n_frames: int, cfg):
     """The six cell grids of ``cfg``'s grid over the valid slots (cells
     from ``xs, ys, zs``, sums of the payload ``a, b, c``)."""
     gs, gw = cfg.grid_size, cfg.grid_width
-    _, cid = _cells(xs, ys, zs, frame, n_frames, gs, gw)
+    cid = _cells(xs, ys, zs, frame, gs, gw)
     return _scatter(cid, valid.to(torch.int32), a, b, c, pid,
                     n_frames * gw * gw * gw)
 

@@ -42,7 +42,8 @@ smoothing, 45-degree views):
      assembled x, y, z (inverse 45-degree rotation applied), the two
      maps interleaved per pixel, packed into three u32 words;
   2. optional geometry smoothing, then colour smoothing on the smoothed
-     positions (``smoothing``), on the words unpacked and repacked;
+     positions (``smoothing``), on the words unpacked and repacked (the
+     ``recon_smooth`` span, when the dispatch is given its GOF's stats);
   3. full-order compaction (``shift_compact_full``, K1F).
 
 Integer carriers: torch on the CPU has no ``>>``/``<<`` on uint32 or
@@ -55,12 +56,14 @@ from __future__ import annotations
 import dataclasses
 import functools
 import subprocess
+from contextlib import nullcontext
 from dataclasses import replace
 
 import numpy as np
 import torch
 
 from ..atlas import groups as G
+from ..utils.stats import stage_timer
 from ..v3c.syntax import UnsupportedFeature
 from .reconstruct import FrameConfig
 from .shift_compact import shift_compact_ops
@@ -636,36 +639,47 @@ def smooth_words(fields, w0, w1, w2, valid, cfg):
     return smooth_words_shards([(fields, w0, w1, w2, valid)], cfg)[0]
 
 
-def reconstruct_batch_pretiled_shards(shards, cfg, combine=None):
+def reconstruct_batch_pretiled_shards(shards, cfg, combine=None,
+                                      stats=None):
     """The wide device dispatch on one or more group shards of the same
     frames: K2W (gather and wide words) on every shard, the smoothing
     passes (cell statistics of every shard, ``combine``, apply; see
     :func:`smooth_words_shards`), then K1F on every shard. ``shards``: a
     list of ``(fields, cat)`` on their devices, each shard's fields a
     contiguous range of the group axis and its cat the whole frames'.
-    Returns one ``(ops, counts)`` per shard, as
-    :func:`reconstruct_batch_pretiled` returns for the whole."""
+    With ``stats`` (a ``utils.stats.GofStats``) the smoothing passes of
+    every shard are one ``recon_smooth`` span, and the counter
+    ``smooth_slots`` adds the slots that entered the grids (frames times
+    slot extent, summed over the shards; known on the host). Returns
+    one ``(ops, counts)`` per shard, as :func:`reconstruct_batch_pretiled`
+    returns for the whole."""
     from .payload import wide_words
     from .shift_compact import shift_compact_full
 
     words = [wide_words(fields, cat, cfg) for fields, cat in shards]
     if cfg.smoothing is not None or cfg.attr_smoothing is not None:
-        smoothed = smooth_words_shards(
-            [(fields, *w) for (fields, _), w in zip(shards, words)],
-            cfg, combine,
-        )
+        with (nullcontext() if stats is None
+              else stage_timer(stats, "recon_smooth")):
+            smoothed = smooth_words_shards(
+                [(fields, *w) for (fields, _), w in zip(shards, words)],
+                cfg, combine,
+            )
+        if stats is not None:
+            stats.count("smooth_slots", sum(w[3].numel() for w in words))
         words = [(*sw, w[3]) for sw, w in zip(smoothed, words)]
     return [shift_compact_full(w[:3], w[3]) for w in words]
 
 
-def reconstruct_batch_pretiled(fields, cat, cfg):
+def reconstruct_batch_pretiled(fields, cat, cfg, stats=None):
     """The wide device dispatch on staged cat inputs: K2W (gather and
     wide words), optional smoothing, K1F. Same inputs as
-    :func:`reconstruct_batch_pretiled_packed`. Returns ``(ops, counts)``:
-    ``ops`` the compacted ``(w0, w1, w2)``, each (F, S) with the
-    frame's prefix in emission order (unpack with
+    :func:`reconstruct_batch_pretiled_packed`; ``stats`` as in
+    :func:`reconstruct_batch_pretiled_shards`. Returns ``(ops,
+    counts)``: ``ops`` the compacted ``(w0, w1, w2)``, each (F, S) with
+    the frame's prefix in emission order (unpack with
     ``_unpack_ops_points(ops, "wide")``); ``counts`` (F,) int32."""
-    return reconstruct_batch_pretiled_shards([(fields, cat)], cfg)[0]
+    return reconstruct_batch_pretiled_shards([(fields, cat)], cfg,
+                                             stats=stats)[0]
 
 
 def _m10_triplet(w):

@@ -152,7 +152,7 @@ def reconstruct_gof_spatial(
 
 
 def reconstruct_gof_spatial_pretiled(mesh: Mesh, fields, put_cat,
-                                     cfg: FrameConfig):
+                                     cfg: FrameConfig, stats=None):
     """2D-sharded reconstruction on the wide path (smoothing, 45-degree
     views): frames over 'data', the group axis of the field table over
     'space' in contiguous chunks (shard order == emission order).
@@ -165,7 +165,9 @@ def reconstruct_gof_spatial_pretiled(mesh: Mesh, fields, put_cat,
     on every shard. Takes a tiled dispatch's staging, ``fields`` a CPU
     tensor and ``put_cat(frames, device)`` (``ops.tiled.host_cat_stager``
     or ``device_pack_stager``); F must divide by 'data' and the group
-    axis by 'space'. Returns
+    axis by 'space'. With ``stats``, each data row's smoothing is a
+    ``recon_smooth`` span and counts ``smooth_slots``
+    (``ops.tiled.reconstruct_batch_pretiled_shards``). Returns
     ``(ops, counts (F, n_space), totals (F, 1))``: ``ops[r][d]`` shard
     d's compacted wide words of data row r's frames, each (F/data,
     s_loc) on the shard's device (``s_loc = G * 2 res² / n_space``),
@@ -180,7 +182,8 @@ def reconstruct_gof_spatial_pretiled(mesh: Mesh, fields, put_cat,
     for r, shards in enumerate(_stage_rows(mesh, fields, put_cat)):
         devs = list(mesh.devices[r])
         out = reconstruct_batch_pretiled_shards(
-            shards, cfg, combine=lambda stats: combine_stats(stats, devs)
+            shards, cfg, combine=lambda grids: combine_stats(grids, devs),
+            stats=stats,
         )
         ops.append([o for o, _ in out])
         counts_rows.append([c for _, c in out])

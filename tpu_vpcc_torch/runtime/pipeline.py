@@ -53,6 +53,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
 from dataclasses import dataclass, replace
+from functools import partial
 from pathlib import Path
 from typing import Iterator, Optional
 
@@ -1434,7 +1435,8 @@ def _dispatch_sharded(di: DeviceInputs, mesh, stats=None):
     if narrow_emit_ok(di.cfg):
         layout, dispatch = "narrow", reconstruct_gof_spatial_pretiled_packed
     else:
-        layout, dispatch = "wide", reconstruct_gof_spatial_pretiled
+        layout = "wide"
+        dispatch = partial(reconstruct_gof_spatial_pretiled, stats=stats)
     with _st(stats, "recon_dispatch"):
         ops, counts, _ = dispatch(mesh, *padded.cat_stager(), di.cfg)
     with _st(stats, "recon_fetch"):
@@ -1498,7 +1500,8 @@ def _dispatch_device(di: DeviceInputs, device, stats=None, mesh=None):
     elif narrow_emit_ok(di.cfg):
         layout, dispatch = "narrow", reconstruct_batch_pretiled_packed
     else:
-        layout, dispatch = "wide", reconstruct_batch_pretiled
+        layout, dispatch = "wide", partial(reconstruct_batch_pretiled,
+                                           stats=stats)
     with _st(stats, "recon_dispatch"):
         with _st(stats, "recon_h2d"):
             inputs = di.on_device(device)
