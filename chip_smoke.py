@@ -8,10 +8,11 @@ and the CUDA toolkit (nvcc). Phases, each of which exits non-zero on
 failure:
 
   1. device and build: the card's name and power limit, the builds of
-     the five kernel libraries (K1 and K1F in ``shift_compact.cu``, K2W
+     the six kernel libraries (K1 and K1F in ``shift_compact.cu``, K2W
      in ``wide_words.cu``, K3 in ``cursor_compact.cu``, the probes P1-P12
-     of K4-K6 in ``probes.cu``, K5 in ``pack_planes.cu``; one nvcc each,
-     started together) with
+     of K4-K6 in ``probes.cu``, K5 in ``pack_planes.cu``, the smoothing
+     kernels S1 and S2 in ``grid_smooth.cu``; one nvcc each, started
+     together) with
      nvcc's ``-Xptxas -v`` lines, and whether the host video bridge
      (libavcodec) loads (phase 6 does not use it);
   2. K1 against its plain PyTorch version on the card: densities 0, 0.3,
@@ -58,13 +59,21 @@ failure:
      flight: the first GOF's two 1280^2 frames with geometry and colour
      smoothing, and two frames (seeds 4-5) with a third of their patches
      on 45-degree views. Every frame byte-equal to the numpy oracle
-     (``_reconstruct_gof_oracle``), the K2W, K1F and K5 launch counters
-     read around the run (K5's equal to K2W's), and the smoothed frames
-     differ from phase 3's
+     (``_reconstruct_gof_oracle``), the K2W, K1F, K5 and smoothing
+     launch counters read around the run (K5's equal to K2W's; the
+     smoothing kernels three a pass, two passes a dispatch of the
+     smoothed GOF), and the smoothed frames differ from phase 3's
      unsmoothed decode of the same frames in a position and a colour;
-     then the times of K2W and K1F (below), CUDA-event timings of the
-     smoothing, the wide dispatch, the fetch and the host staging, and
-     the Decoder's frames/s with one and two GOFs in flight;
+     then, on the smoothing GOF's dispatch's own slot arrays, the
+     smoothing kernels' grids and outputs of both passes byte-equal to
+     the plain versions' (``kernel_times.smooth_cases``); the times of
+     K2W, K1F, and each pass's S1 (the grids' initialisation and
+     ``smooth_stats_kernel``) and S2 (``smooth_apply_kernel``) (below),
+     CUDA-event timings of the smoothing (the words' unpack, both passes
+     on the kernels, the repack), of both passes on the kernels and in
+     their plain versions, of the wide dispatch, the fetch and the host
+     staging, and the Decoder's frames/s with one and two GOFs in
+     flight;
   5b. the gather fallback through ``Decoder.start_gofs``, two GOFs in
      flight: GOF R (two 1280^2 frames, seeds 6-7, with a third of their
      patches turned to rotated orientations), GOF W (phase 3's first
@@ -73,7 +82,8 @@ failure:
      byte-equal to the numpy oracle, GOF W's also to phase 3's 10-bit
      decode, the rotated patches' own points counted by a dispatch of
      their groups alone, smoothing's effect on GOF RS, K1F's launch
-     counter advanced by exactly the gather dispatches and K1's, K2W's
+     counter advanced by exactly the gather dispatches, the smoothing
+     kernels' by three a pass of GOF RS's dispatches, and K1's, K2W's
      and K5's not at all; the colour conversion on 16-bit samples equal on
      the card and the CPU; then K1F's times at GOF R's dispatch shape
      (below), CUDA-event timings of the slot math of each GOF, the
@@ -165,7 +175,8 @@ failure:
      over four distinct cards. Every frame byte-equal to its meshless
      decode; the K1, K2W and K1F launch counters, set to 0 before each
      decode, read shards x chunks on the tiled GOFs, K5's distinct
-     devices of each data row x chunks, and GOF R takes the
+     devices of each data row x chunks, the smoothing kernels' three a
+     pass x shards x the smoothed GOF's chunks, and GOF R takes the
      reference's counted fallback (``mesh_fallback_dispatches``, one
      K1F launch per chunk); smoothing moved the same points as in phase
      5. ``reconstruct_gof_spatial`` and ``reconstruct_batch_data_parallel``
@@ -250,6 +261,15 @@ K2W_SOURCE = "tpu_vpcc_torch/csrc/wide_words.cu"
 K2W_REPLACES = "tpu_vpcc/ops/pallas_kernels.py:38"
 K3_SOURCE = "tpu_vpcc_torch/csrc/cursor_compact.cu"
 K3_REPLACES = "tools/compaction_experiment.py:515"
+S_SOURCE = "tpu_vpcc_torch/csrc/grid_smooth.cu"
+#: each half of a smoothing pass, geometry and colour: the XLA scatters
+#: of the reference's flat smoothing (no Pallas kernel) and its apply
+S_REPLACES = {
+    "geometry stats": "tpu_vpcc/ops/smoothing.py:177",
+    "geometry apply": "tpu_vpcc/ops/smoothing.py:62",
+    "colour stats": "tpu_vpcc/ops/smoothing.py:518",
+    "colour apply": "tpu_vpcc/ops/smoothing.py:249",
+}
 PROBES_SOURCE = "tpu_vpcc_torch/csrc/probes.cu"
 #: each probe's Pallas kernel
 PROBE_REPLACES = {
@@ -276,7 +296,7 @@ PROBE_ENTRIES = {
     "P12": "probe_interleave",
 }
 KERNEL_LIBS = ("shift_compact", "wide_words", "cursor_compact", "probes",
-               "pack_planes")
+               "pack_planes", "grid_smooth")
 #: the two stagings of the tiled paths (see :func:`staged_as`)
 STAGINGS = ("device pack", "host pack")
 
@@ -288,6 +308,19 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def smooth_launches(gof, dispatches: int, shards: int = 1) -> int:
+    """The launches of the smoothing kernels that ``dispatches`` dispatches
+    of ``gof``, each on ``shards`` shards, make: three a pass (the grids'
+    initialisation, the statistics, the apply) on each shard, a pass for
+    geometry and one for colour smoothing (none on RGB colour)."""
+    passes = (gof.geo_smoothing is not None) + (
+        gof.attr_smoothing is not None and not gof.attr_is_rgb444)
+    check(not (passes and gof.sec_attrs),
+          "a smoothed GOF with secondary attributes: its smoothing "
+          "launches are not counted here")
+    return 3 * passes * dispatches * shards
 
 
 @contextmanager
@@ -352,6 +385,7 @@ def phase_build():
     from tpu_vpcc_torch.ops import cursor_compact as k3
     from tpu_vpcc_torch.ops import pack, payload, probes
     from tpu_vpcc_torch.ops import shift_compact as sc
+    from tpu_vpcc_torch.ops import smoothing as S
     from tpu_vpcc_torch.tools.kernel_times import nvidia_smi_line
 
     print(f"device: {torch.cuda.get_device_name(0)}")
@@ -362,7 +396,7 @@ def phase_build():
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(KERNEL_LIBS)) as pool:
         list(pool.map(_build.build, KERNEL_LIBS))
-    for mod in (sc, payload, k3, probes, pack):
+    for mod in (sc, payload, k3, probes, pack, S):
         mod._load()
     print(f"kernel builds ({', '.join(KERNEL_LIBS)}, in parallel): "
           f"{time.perf_counter() - t0:.2f} s")
@@ -979,8 +1013,10 @@ def phase_k2w(gof):
 
 def phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err):
     """The wide flagship main path through ``Decoder.start_gofs``, the
-    oracle, smoothing's effect and the timings; returns the kernels' JSON
-    entries of K1F and K2W, the two wide GOFs and their decoded frames."""
+    oracle, smoothing's effect, the smoothing kernels against their
+    plain versions at the smoothing GOF's dispatch shape, and the
+    timings; returns the kernels' JSON entries of K1F, K2W and the
+    smoothing kernels, the two wide GOFs and their decoded frames."""
     import numpy as np
     import torch
 
@@ -993,7 +1029,12 @@ def phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err):
     )
     from tpu_vpcc_torch.ops import pack, payload
     from tpu_vpcc_torch.ops import shift_compact as sc
-    from tpu_vpcc_torch.ops.tiled import reconstruct_batch_pretiled, smooth_words
+    from tpu_vpcc_torch.ops import smoothing as S
+    from tpu_vpcc_torch.ops.tiled import (
+        reconstruct_batch_pretiled,
+        smooth_slot_arrays,
+        smooth_words,
+    )
     from tpu_vpcc_torch.runtime import pipeline as P
     from tpu_vpcc_torch.runtime.host import _reconstruct_gof_oracle
     from tpu_vpcc_torch.tools.kernel_times import (
@@ -1001,6 +1042,8 @@ def phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err):
         measure,
         measured_line,
         nvidia_smi_line,
+        smooth_cases,
+        smooth_passes,
     )
 
     dev = torch.device("cuda")
@@ -1024,22 +1067,33 @@ def phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err):
     sc.reset_launches()
     payload.reset_launches()
     pack.reset_launches()
+    S.reset_launches()
     t0 = time.perf_counter()
     out = decode_gofs(wide_gofs, depth=2)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     k2w_launches, k1f_launches = payload.launches, sc.full_launches
+    s_launches = S.launches
     check(k2w_launches > 0 and k1f_launches > 0,
           f"the wide main path launched K2W {k2w_launches} and K1F "
           f"{k1f_launches} times")
     check(pack.launches == k2w_launches,
           f"the wide main path launched K5 {pack.launches} times for "
           f"{k2w_launches} device-packed K2W dispatches")
+    # one dispatch per DEVICE_BATCH frames; only GOF 0 smooths
+    sm_dispatches = -(-len(wide_gofs[0].metas) // P.DEVICE_BATCH)
+    s_want = sum(smooth_launches(g, -(-len(g.metas) // P.DEVICE_BATCH))
+                 for g in wide_gofs)
+    check(s_launches == s_want and s_want == 6 * sm_dispatches,
+          f"the wide main path launched the smoothing kernels "
+          f"{s_launches} times, want {s_want} (3 a pass, 2 passes, "
+          f"{sm_dispatches} smoothed dispatches)")
     print(f"wide main path: Decoder.start_gofs, pipeline_gofs=2, "
           f"{len(wide_gofs)} GOFs, {len(out)} frames in {first_s:.3f} s "
           f"(first run), K2W launches {k2w_launches}, K1F launches "
           f"{k1f_launches}, K5 launches {pack.launches}, K1 launches "
-          f"{sc.launches}")
+          f"{sc.launches}, smoothing launches {s_launches} (3 a pass x 2 "
+          f"passes x {sm_dispatches} smoothed dispatches)")
     n_frames = sum(len(f) for f in wide_sets)
     check(len(out) == n_frames, f"{len(out)} frames out for {n_frames} in")
     n_points = []
@@ -1081,6 +1135,19 @@ def phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err):
     stage_s = time.perf_counter() - t0
     fields, cat = di.on_device(dev)
     w0, w1, w2, valid = payload.wide_words(fields, cat, di.cfg)
+    F = valid.shape[0]
+    # the smoothing kernels against their plain versions on this
+    # dispatch's own slot arrays, both passes, grids and outputs
+    s_cols, s_args = smooth_slot_arrays(fields, w0, w1, w2, valid)
+    s_err, s_moved, s_runs = smooth_cases(s_cols, s_args, F, di.cfg)
+    check(s_err == 0, f"the smoothing kernels differ from their plain "
+                      f"versions at the wide flagship (by up to {s_err})")
+    check(all(s_moved), f"the smoothing kernels moved {s_moved[0]} "
+                        f"coordinates and {s_moved[1]} colour components")
+    print(f"smoothing kernels at the smoothing GOF's dispatch shape: both "
+          f"passes' grids and outputs byte-equal to the plain versions; "
+          f"moved {s_moved[0]} coordinates and {s_moved[1]} colour "
+          f"components")
     sw = smooth_words(fields, w0, w1, w2, valid, di.cfg)
     got, n_got = sc.shift_compact_full(sw, valid)
     ref, n_ref = sc.shift_compact_full_reference(sw, valid)
@@ -1096,7 +1163,6 @@ def phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err):
     # three words and the validity of every slot; K1F must read the
     # validity once and each valid slot's three words, and write those
     # words and the counts
-    F = valid.shape[0]
     n_live = int((fields[:, :, G.G_VALID] > 0).sum())
     k2w_bytes = fields.numel() * 4 + n_live * cat.shape[2] * 4 \
         + valid.numel() * 13
@@ -1107,12 +1173,19 @@ def phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err):
     k1f = measure(lambda: sc._shift_compact_full_cuda(sw, valid),
                   lambda: sc.shift_compact_full_reference(sw, valid),
                   nbytes=k1f_bytes)
+    s_meas = {name: measure(kernel, plain, nbytes=nbytes)
+              for name, (kernel, plain, nbytes) in s_runs.items()}
     runs = {
+        # the words' unpack, both passes on the kernels and the repack
         "smoothing": lambda: smooth_words(fields, w0, w1, w2, valid, di.cfg),
+        "smoothing passes, kernels": lambda: smooth_passes(
+            s_cols, s_args, F, di.cfg),
+        "smoothing passes, plain": lambda: smooth_passes(
+            s_cols, s_args, F, di.cfg, plain=True),
         "dispatch": lambda: reconstruct_batch_pretiled(fields, cat, di.cfg),
     }
     ms = {name: [] for name in runs}
-    for name in ("smoothing", "dispatch", "dispatch", "smoothing"):
+    for name in [*runs, *reversed(runs)]:
         ms[name].append(event_ms(runs[name], reps=10))
     med = {name: statistics.median(v) for name, v in ms.items()}
     ops, counts_t = reconstruct_batch_pretiled(fields, cat, di.cfg)
@@ -1125,6 +1198,10 @@ def phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err):
     for name, m in (("K2W", k2w), ("K1F", k1f)):
         print(measured_line(f"{name} at the smoothing GOF's dispatch shape, "
                             f"{per_gof[name]:g} launches per two-frame GOF",
+                            m, smi))
+    for name, m in s_meas.items():
+        print(measured_line(f"smoothing {name} at the smoothing GOF's "
+                            f"dispatch shape, once a smoothed dispatch",
                             m, smi))
     print(f"wide timings (median CUDA events, {smi}): " + "; ".join(
         f"{name} {med[name]:.4f} ms (runs {ms[name]})" for name in runs)
@@ -1161,6 +1238,14 @@ def phase_wide(fcfg, frame_sets, narrow_out, k1f_err, k2w_err):
         dict(k2w, name="wide_words", route="cuda", source=K2W_SOURCE,
              replaces=K2W_REPLACES, launches=k2w_launches,
              max_abs_err=k2w_err),
+    ] + [
+        # S1: the grids' initialisation and smooth_stats_kernel (two
+        # launches a pass); S2: smooth_apply_kernel (one)
+        dict(m, name=f"smooth_{half}", smoothing_pass=kind, route="cuda",
+             source=S_SOURCE, replaces=S_REPLACES[name],
+             launches=(2 if half == "stats" else 1) * sm_dispatches,
+             max_abs_err=s_err)
+        for name, m in s_meas.items() for kind, half in [name.split()]
     ], wide_gofs, out
 
 
@@ -1182,6 +1267,7 @@ def phase_gather(fcfg, frame_sets, narrow_out):
     )
     from tpu_vpcc_torch.ops import pack, payload
     from tpu_vpcc_torch.ops import shift_compact as sc
+    from tpu_vpcc_torch.ops import smoothing as S
     from tpu_vpcc_torch.ops.color import rgb8_from_yuv16
     from tpu_vpcc_torch.ops.reconstruct import gather_words, reconstruct_batch
     from tpu_vpcc_torch.ops.tiled import gather_inputs_to_device
@@ -1221,7 +1307,7 @@ def phase_gather(fcfg, frame_sets, narrow_out):
           f"{time.perf_counter() - t0:.2f} s)")
     check(all(rotated), "a frame of GOF R has no rotated patch")
 
-    staged, dispatches = {}, 0
+    staged, dispatches, s_want = {}, 0, 0
     for name, g in zip(specs, gofs):
         cfg, tables, g_bucket = P._gof_tables_and_bucket(g)
         t0 = time.perf_counter()
@@ -1231,9 +1317,11 @@ def phase_gather(fcfg, frame_sets, narrow_out):
         check(not staged[name].use_tiled,
               f"GOF {name} would take a tiled path")
         # one dispatch per chunk, trailing-layer pass and secondary twin
-        dispatches += (-(-len(g.metas) // P.DEVICE_BATCH)
-                       * (1 + max(0, g.map_count - 2))
-                       * (1 + len(g.sec_attrs)))
+        n_disp = (-(-len(g.metas) // P.DEVICE_BATCH)
+                  * (1 + max(0, g.map_count - 2))
+                  * (1 + len(g.sec_attrs)))
+        dispatches += n_disp
+        s_want += smooth_launches(g, n_disp)
         print(f"GOF {name}: gather fallback (tiled_ok "
               f"{[t.tiled_ok for t in tables]}, packed10_ok "
               f"{g.packed10_ok}, geo_shift {g.geo_shift}), {g_bucket} "
@@ -1245,16 +1333,21 @@ def phase_gather(fcfg, frame_sets, narrow_out):
     sc.reset_launches()
     payload.reset_launches()
     pack.reset_launches()
+    S.reset_launches()
     t0 = time.perf_counter()
     out = decode_gofs(gofs, depth=2)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {"K1F": sc.full_launches, "K1": sc.launches,
-                "K2W": payload.launches, "K5": pack.launches}
+                "K2W": payload.launches, "K5": pack.launches,
+                "smoothing": S.launches}
     peak_run = torch.cuda.max_memory_allocated()
-    check(launches == {"K1F": dispatches, "K1": 0, "K2W": 0, "K5": 0},
+    check(s_want > 0, "no gather GOF smooths")
+    check(launches == {"K1F": dispatches, "K1": 0, "K2W": 0, "K5": 0,
+                       "smoothing": s_want},
           f"the gather main path launched {launches} for {dispatches} "
-          f"gather dispatches")
+          f"gather dispatches (smoothing: {s_want}, three a pass of GOF "
+          f"RS's dispatches)")
     print(f"gather main path: Decoder.start_gofs, pipeline_gofs=2, "
           f"{len(gofs)} GOFs, {len(out)} frames in {first_s:.3f} s (first "
           f"run), {dispatches} gather dispatches, launches {launches}")
@@ -2276,6 +2369,7 @@ def phase_mesh(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
             sc.reset_launches()
             payload.reset_launches()
             pack.reset_launches()
+            S.reset_launches()
             t0 = time.perf_counter()
             dec = Decoder(Params(device="cuda", mesh=mesh))
             dec.start_gofs(set_gofs)
@@ -2283,13 +2377,19 @@ def phase_mesh(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
             sync()
             secs = time.perf_counter() - t0
             launches = {"K1": sc.launches, "K2W": payload.launches,
-                        "K1F": sc.full_launches, "K5": pack.launches}
+                        "K1F": sc.full_launches, "K5": pack.launches,
+                        "smoothing": S.launches}
             fallbacks = dec.stats.counter_totals().get(
                 "mesh_fallback_dispatches", 0)
             shards = data * space
             # K5 runs once on each distinct device of each data row
             rows = sum(len(dict.fromkeys(mesh.devices[r]))
                        for r in range(data))
+            # the smoothing kernels: three a pass on every shard of a
+            # smoothed GOF's chunks (the gather fallback runs unsharded)
+            smoothing = sum(smooth_launches(
+                g, -(-len(g.metas) // chunk),
+                1 if name == "gather R" else shards) for g in set_gofs)
             expect = {
                 "narrow": {"K1": shards * chunks, "K2W": 0, "K1F": 0,
                            "K5": rows * chunks},
@@ -2297,10 +2397,14 @@ def phase_mesh(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
                          "K1F": shards * chunks, "K5": rows * chunks},
                 "gather R": {"K1": 0, "K2W": 0, "K1F": chunks, "K5": 0},
             }[name]
+            expect["smoothing"] = smoothing
+            check((smoothing > 0) == (name == "wide"),
+                  f"{where}, {name}: {smoothing} smoothing launches due")
             check(launches == expect,
                   f"{where}, {name}: launches {launches}, want {expect} "
                   f"({shards} shards x {chunks} chunks, K5 {rows} "
-                  f"row devices x {chunks} chunks)")
+                  f"row devices x {chunks} chunks, smoothing 3 a pass on "
+                  f"each shard of the smoothed GOF's chunks)")
             check((fallbacks >= 1) == (name == "gather R"),
                   f"{where}, {name}: {fallbacks} mesh fallback dispatches")
             check(len(out) == len(want), f"{where}, {name}: {len(out)} "

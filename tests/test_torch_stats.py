@@ -1,7 +1,8 @@
 """The port's stage spans and counters (``tpu_vpcc_torch.utils.stats``):
 the span record, its parents and GOF ids, the dispatch split into H2D,
 enqueue and sync, the H2D byte counter, the wide path's smoothing span
-and slot counter (absent on the narrow path), the decode loop's hold and the
+and slot counter (absent on the narrow path) and its count of passes run
+on the smoothing kernels, the decode loop's hold and the
 frame hand-off, its emission of a GOF as soon as it is reconstructed
 (``emit_early``), the bound on kept spans, and ``stage_seconds`` written
 once a span, at its end."""
@@ -381,6 +382,49 @@ def test_smooth_slots_count_frames_times_slot_extent(decoded_wide):
     assert dec.stats.counter_totals()["smooth_slots"] == slots
     # a group's slots: two maps of res x res pixels
     assert all(s % (2 * 16 * 16) == 0 for _, s in seen)
+
+
+@pytest.mark.parametrize("path", ["plain", "kernels", "unlaunched"])
+def test_smooth_kernel_passes_count_only_the_kernel_path(monkeypatch, path):
+    """``smooth_kernel_passes`` adds two a wide dispatch (geometry and
+    colour) where smoothing launches its kernels, and nothing on the
+    plain path. Here the kernel path is the plain versions put in the
+    kernels' place on the CPU, counting their launches as the kernels'
+    wrappers do (``kernels``) or not at all (``unlaunched``: the device
+    would take the kernels, but none launched, so nothing is counted);
+    the frames are the plain path's."""
+    from tpu_vpcc_torch.ops import smoothing
+
+    _plain, want, _ = _decode_seeing_smoothing(_wide_gofs(n=1))
+    if path != "plain":
+        launch = (smoothing._count_launches if path == "kernels"
+                  else lambda n, passes=0: None)
+
+        def stats(*args):
+            launch(2)
+            return smoothing._stats_plain(*args)
+
+        def apply(stats, xs, ys, zs, a, b, c, valid, pid, frame, cfg,
+                  color):
+            launch(1, passes=1)
+            if color:
+                return smoothing.color_apply_plain(
+                    stats, xs, ys, zs, a, b, c, valid, pid, frame, cfg)
+            return smoothing.geometry_apply_plain(stats, xs, ys, zs, valid,
+                                                  pid, frame, cfg)
+
+        monkeypatch.setattr(smoothing, "uses_kernels", lambda t: True)
+        monkeypatch.setattr(smoothing, "_stats_cuda", stats)
+        monkeypatch.setattr(smoothing, "_apply_cuda", apply)
+    dec, frames, _seen = _decode_seeing_smoothing(_wide_gofs(n=1))
+    assert [format_ply(f) for f in frames] == [format_ply(f) for f in want]
+    (g,) = dec.stats.gofs
+    dispatches = sum(s.name == "recon_smooth" for s in g.spans)
+    assert dispatches == 2
+    if path == "kernels":
+        assert g.counters["smooth_kernel_passes"] == 2 * dispatches
+    else:
+        assert "smooth_kernel_passes" not in g.counters
 
 
 def test_narrow_path_records_no_smoothing(decoded):

@@ -4,20 +4,27 @@ Counterparts of ``tpu_vpcc.ops.smoothing.smooth_batch`` and
 ``smooth_colors_batch`` (the wide path's (F, S) slot tensors) and of
 ``smooth_flat`` and ``smooth_colors_flat`` (the gather fallback's slots,
 flattened over the frames with an explicit frame index). Those are XLA
-scatters in the JAX package, not Pallas kernels, so here they stay plain
-PyTorch on the tensors' device:
-``index_add_`` and ``scatter_reduce_`` (``amin``/``amax``) over
+scatters in the JAX package, not Pallas kernels. Each pass is split
+where the reference's ``scatter`` ends: the cell statistics
+(:func:`geometry_stats`, :func:`color_stats`: six int32 grids of
 ``F * grid_width³`` flat cells, each frame's grid folded into the cell
-axis. Each pass is split where the reference's ``scatter`` ends: the
-cell statistics (:func:`geometry_stats`, :func:`color_stats`: six
-grids) and the apply step (:func:`geometry_apply`, :func:`color_apply`:
-neighbourhood, centroids, move), which transcribe the reference's
-``_smooth_core`` and ``_smooth_color_core`` line for line, in int32
-(``//`` floors, as in numpy and JAX); cell indices are int64. Integer
-scatters add exactly in any order, so the result does not depend on the
-device's atomics, and the grids of a frame's slot shards combine
-exactly (:func:`combine_stats`, the mesh's counterpart of the
+axis) and the apply step (:func:`geometry_apply`, :func:`color_apply`:
+neighbourhood, centroids, move). The grids of a frame's slot shards
+combine exactly (:func:`combine_stats`, the mesh's counterpart of the
 reference's ``psum``/``pmin``/``pmax`` over 'space').
+
+On a CPU tensor each half runs its plain PyTorch version
+(:func:`_stats_plain`, :func:`geometry_apply_plain`,
+:func:`color_apply_plain`): ``index_add_`` and ``scatter_reduce_``
+(``amin``/``amax``) over the flat cells, then a transcription of the
+reference's ``_smooth_core`` and ``_smooth_color_core`` line for line,
+in int32 (``//`` floors, as in numpy and JAX); cell indices are int64.
+On a CUDA tensor it launches the hand-written kernels of
+``csrc/grid_smooth.cu`` (one launch initialises the grids, one fills
+them, one applies them: three a pass in place of some 250 PyTorch
+operations) or raises. Integer scatters add exactly in any order, so
+both give the same bytes whatever the device's atomics do; the plain
+versions are the oracle the kernels are held to.
 
 The two configurations are copied from ``tpu_vpcc.ops.smoothing``; its
 numpy oracle is copied into :mod:`.smoothing_np`.
@@ -25,10 +32,14 @@ numpy oracle is copied into :mod:`.smoothing_np`.
 
 from __future__ import annotations
 
+import ctypes
+import threading
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from . import _build
 
 
 @dataclass(frozen=True)
@@ -66,6 +77,47 @@ class AttrSmoothingConfig:
 
 _BIG = np.int32(1 << 30)
 BIG = int(_BIG)
+
+#: kernel launches made by the smoothing kernels in this process: a pass
+#: is three (the grids' initialisation and the statistics, then the apply)
+launches = 0
+_launch_lock = threading.Lock()
+_thread = threading.local()
+_lib = None
+
+
+def reset_launches() -> None:
+    global launches
+    with _launch_lock:
+        launches = 0
+
+
+def _count_launches(n: int, passes: int = 0) -> None:
+    """Adds ``n`` launches to :data:`launches` and ``passes`` (the apply
+    launches, each of which ends a pass on one slot set) to the calling
+    thread's :func:`thread_passes`."""
+    global launches
+    with _launch_lock:
+        launches += n
+    _thread.passes = thread_passes() + passes
+
+
+def thread_passes() -> int:
+    """The smoothing passes the calling thread has run on the kernels:
+    one a launch of ``smooth_apply_kernel``, that is a pass on one slot
+    set (one shard of a dispatch). Never reset; read it before and
+    after."""
+    return getattr(_thread, "passes", 0)
+
+
+def uses_kernels(t) -> bool:
+    """Whether smoothing on ``t``'s device runs the hand-written kernels
+    (a CUDA tensor) or the plain PyTorch versions (a CPU tensor)."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise NotImplementedError(f"no smoothing kernels for device {t.device}")
 
 
 def _axis_neighborhood(coord, gs: int, gw: int):
@@ -139,13 +191,23 @@ def _round_div(num, den):
     return (num + den // 2) // den
 
 
-def _stats(xs, ys, zs, a, b, c, valid, pid, frame, n_frames: int, cfg):
+def _stats_plain(xs, ys, zs, a, b, c, valid, pid, frame, n_frames: int,
+                 cfg):
     """The six cell grids of ``cfg``'s grid over the valid slots (cells
-    from ``xs, ys, zs``, sums of the payload ``a, b, c``)."""
+    from ``xs, ys, zs``, sums of the payload ``a, b, c``), in plain
+    PyTorch on the tensors' device."""
     gs, gw = cfg.grid_size, cfg.grid_width
     cid = _cells(xs, ys, zs, frame, gs, gw)
     return _scatter(cid, valid.to(torch.int32), a, b, c, pid,
                     n_frames * gw * gw * gw)
+
+
+def _stats(xs, ys, zs, a, b, c, valid, pid, frame, n_frames: int, cfg):
+    """:func:`_stats_plain`'s grids, by the kernels on a CUDA tensor."""
+    args = (xs, ys, zs, a, b, c, valid, pid, frame, n_frames, cfg)
+    if uses_kernels(xs):
+        return _stats_cuda(*args)
+    return _stats_plain(*args)
 
 
 def geometry_stats(xs, ys, zs, valid, pid, frame, n_frames: int,
@@ -164,7 +226,17 @@ def geometry_apply(stats, xs, ys, zs, valid, pid, frame,
     """The second half of ``tpu_vpcc.ops.smoothing._smooth_core``: each
     slot's neighbourhood in the grids ``stats`` (:func:`geometry_stats`
     of the whole frames), the centroids and the move. Returns the flat
-    int32 smoothed ``xs, ys, zs``."""
+    int32 smoothed ``xs, ys, zs``: :func:`geometry_apply_plain`'s, by the
+    kernel on a CUDA tensor."""
+    if uses_kernels(xs):
+        return _apply_cuda(stats, xs, ys, zs, xs, ys, zs, valid, pid, frame,
+                           cfg, color=False)
+    return geometry_apply_plain(stats, xs, ys, zs, valid, pid, frame, cfg)
+
+
+def geometry_apply_plain(stats, xs, ys, zs, valid, pid, frame,
+                         cfg: SmoothingConfig):
+    """:func:`geometry_apply` in plain PyTorch on the tensors' device."""
     gs, gw = cfg.grid_size, cfg.grid_width
     counts, sum_x, sum_y, sum_z, min_p, max_p = stats
     # per-cell rounded centroid (count-0 cells unused)
@@ -214,7 +286,18 @@ def color_apply(stats, xs, ys, zs, cy, cu, cv, valid, pid, frame,
                 cfg: AttrSmoothingConfig):
     """The second half of ``tpu_vpcc.ops.smoothing._smooth_color_core``
     on the grids ``stats`` (:func:`color_stats`). Returns the flat int32
-    ``cy, cu, cv``."""
+    ``cy, cu, cv``: :func:`color_apply_plain`'s, by the kernel on a CUDA
+    tensor."""
+    if uses_kernels(xs):
+        return _apply_cuda(stats, xs, ys, zs, cy, cu, cv, valid, pid, frame,
+                           cfg, color=True)
+    return color_apply_plain(stats, xs, ys, zs, cy, cu, cv, valid, pid,
+                             frame, cfg)
+
+
+def color_apply_plain(stats, xs, ys, zs, cy, cu, cv, valid, pid, frame,
+                      cfg: AttrSmoothingConfig):
+    """:func:`color_apply` in plain PyTorch on the tensors' device."""
     gs, gw = cfg.grid_size, cfg.grid_width
     counts, sum_y, sum_u, sum_v, min_p, max_p = stats
     cnt_safe = counts.clamp(min=1)
@@ -264,6 +347,120 @@ def color_apply(stats, xs, ys, zs, cy, cu, cv, valid, pid, frame,
     )
 
 
+def _check_slots(**named):
+    """The slot count of flat slot arrays that the kernels take: one
+    length, one device, contiguous, ``valid`` bool, ``frame`` int64 and
+    the rest int32. Raises before any launch on anything else."""
+    n = dev = None
+    for name, t in named.items():
+        want = {"valid": torch.bool, "frame": torch.int64}.get(name,
+                                                               torch.int32)
+        if t.dtype != want:
+            raise TypeError(f"{name}: dtype {t.dtype}, want {want}")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be flat and contiguous, got "
+                             f"shape {tuple(t.shape)}, strides "
+                             f"{t.stride()}")
+        if n is None:
+            n, dev = t.numel(), t.device
+        elif t.numel() != n:
+            raise ValueError(f"{name} has {t.numel()} slots, xs {n}")
+        elif t.device != dev:
+            raise ValueError(f"{name} lies on {t.device}, xs on {dev}")
+    return n
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = _build.load("grid_smooth")
+        lib.smooth_stats.restype = ctypes.c_int
+        lib.smooth_stats.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 2
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+        )
+        lib.smooth_apply.restype = ctypes.c_int
+        lib.smooth_apply.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 15 + [ctypes.c_int64] * 2
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+        )
+        _lib = lib
+    return _lib
+
+
+def _stats_cuda(xs, ys, zs, a, b, c, valid, pid, frame, n_frames: int,
+                cfg):
+    """The six grids by ``smooth_stats_kernel`` (after one launch of
+    ``smooth_init_kernel``): rows of one (6, n_frames * grid_width³)
+    int32 tensor, byte-equal to :func:`_stats_plain`'s."""
+    n = _check_slots(xs=xs, ys=ys, zs=zs, a=a, b=b, c=c, valid=valid,
+                     pid=pid, frame=frame)
+    if n_frames < 1:
+        raise ValueError(f"n_frames must be at least 1, got {n_frames}")
+    gs, gw = cfg.grid_size, cfg.grid_width
+    lib = _load()
+    dev = xs.device
+    grids = torch.empty((6, n_frames * gw ** 3), dtype=torch.int32,
+                        device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.smooth_stats(
+            *(t.data_ptr() for t in (xs, ys, zs, a, b, c, valid, pid,
+                                     frame)),
+            n, n_frames, gs, gw, grids.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"smooth_stats kernel launch failed: CUDA error "
+                           f"{rc}")
+    _count_launches(2)
+    return tuple(grids.unbind(0))
+
+
+def _apply_cuda(stats, xs, ys, zs, a, b, c, valid, pid, frame, cfg,
+                color: bool):
+    """``smooth_apply_kernel``: the smoothed payload ``a, b, c`` (the
+    positions for geometry, ``cy, cu, cv`` for colour) on the grids
+    ``stats``, byte-equal to :func:`geometry_apply_plain`'s or
+    :func:`color_apply_plain`'s."""
+    n = _check_slots(xs=xs, ys=ys, zs=zs, a=a, b=b, c=c, valid=valid,
+                     pid=pid, frame=frame)
+    gs, gw = cfg.grid_size, cfg.grid_width
+    if len(stats) != 6:
+        raise ValueError(f"stats must be six grids, got {len(stats)}")
+    cells = stats[0].numel()
+    for k, t in enumerate(stats):
+        if t.dtype != torch.int32 or t.dim() != 1 \
+                or not t.is_contiguous() or t.numel() != cells \
+                or t.device != xs.device:
+            raise ValueError(f"stats[{k}] must be a flat contiguous int32 "
+                             f"grid of {cells} cells on {xs.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if cells == 0 or cells % gw ** 3:
+        raise ValueError(f"grids of {cells} cells hold no whole number of "
+                         f"{gw}³ frame grids")
+    if color:
+        thr_a, thr_b = cfg.threshold_variation, cfg.threshold_difference
+    else:
+        thr_a, thr_b = cfg.threshold, 0
+    lib = _load()
+    dev = xs.device
+    out = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.smooth_apply(
+            int(color), *(t.data_ptr() for t in stats),
+            *(t.data_ptr() for t in (xs, ys, zs, a, b, c, valid, pid,
+                                     frame)),
+            n, cells // gw ** 3, gs, gw, thr_a, thr_b,
+            *(t.data_ptr() for t in out), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"smooth_apply kernel launch failed: CUDA error "
+                           f"{rc}")
+    _count_launches(1, passes=1)
+    return tuple(out)
+
+
 def combine_stats(stats_list, devices):
     """The cell statistics of several slot subsets of the same frames
     (one per shard) combined into those of the whole frames: the
@@ -296,8 +493,15 @@ def _flat_frames(xs):
     return frame[:, None].expand(F, S).reshape(-1)
 
 
+def _flat(t, dtype):
+    """``t`` flat and contiguous in ``dtype``, as the kernels take it (a
+    flattened broadcast, such as one frame's index over its slots, is a
+    strided view until copied)."""
+    return t.reshape(-1).to(dtype).contiguous()
+
+
 def _i32(t):
-    return t.reshape(-1).to(torch.int32)
+    return _flat(t, torch.int32)
 
 
 def smooth_flat(xs, ys, zs, valid, pid, frame, n_frames: int,
@@ -307,8 +511,8 @@ def smooth_flat(xs, ys, zs, valid, pid, frame, n_frames: int,
     ``xs, ys, zs, pid`` integer, ``valid`` bool; returns the flat int32
     smoothed ``xs, ys, zs``. The reference's ``_smooth_core``:
     :func:`geometry_apply` of :func:`geometry_stats`."""
-    args = (_i32(xs), _i32(ys), _i32(zs), valid.reshape(-1), _i32(pid),
-            frame.reshape(-1).to(torch.int64))
+    args = (_i32(xs), _i32(ys), _i32(zs), _flat(valid, torch.bool),
+            _i32(pid), _flat(frame, torch.int64))
     return geometry_apply(geometry_stats(*args, n_frames, cfg), *args, cfg)
 
 
@@ -318,7 +522,7 @@ def smooth_colors_flat(xs, ys, zs, cy, cu, cv, valid, pid, frame,
     one grid per frame (see :func:`smooth_flat`); returns the flat int32
     ``cy, cu, cv``: :func:`color_apply` of :func:`color_stats`."""
     args = (_i32(xs), _i32(ys), _i32(zs), _i32(cy), _i32(cu), _i32(cv),
-            valid.reshape(-1), _i32(pid), frame.reshape(-1).to(torch.int64))
+            _flat(valid, torch.bool), _i32(pid), _flat(frame, torch.int64))
     return color_apply(color_stats(*args, n_frames, cfg), *args, cfg)
 
 

@@ -575,6 +575,23 @@ def _pack16(a, b):
     return _wrap32(a.to(torch.int64) | (b.to(torch.int64) << 16))
 
 
+def smooth_slot_arrays(fields, w0, w1, w2, valid):
+    """The flat slot arrays smoothing takes from one shard's (F, S) wide
+    words: ``[x, y, z, cy, cu, cv]`` int32, unpacked, and ``(valid, pid,
+    frame)``: bool, the slot's group's ``G_PATCH`` (int32) and the slot's
+    frame (int64). Each is contiguous, as the smoothing kernels take
+    them (one frame's ``frame`` would otherwise be a stride-0 view)."""
+    F, S = valid.shape
+    pid = fields[:, :, G.G_PATCH].repeat_interleave(S // fields.shape[1],
+                                                    dim=1)
+    frame = torch.arange(F, dtype=torch.int64, device=valid.device)
+    cols = [t.reshape(-1) for t in (
+        _lo16(w0), _hi16(w0), _lo16(w1), _hi16(w1), _lo16(w2), _hi16(w2)
+    )]
+    return cols, tuple(t.reshape(-1).contiguous() for t in (
+        valid, pid, frame[:, None].expand(F, S)))
+
+
 def smooth_words_shards(shards, cfg, combine=None):
     """Geometry smoothing, then colour smoothing on the smoothed
     positions (as ``tpu_vpcc.ops.tiled._grids_to_words`` orders them),
@@ -600,18 +617,8 @@ def smooth_words_shards(shards, cfg, combine=None):
         if len(shards) != 1:
             raise ValueError("several shards need a combine of their stats")
         combine = lambda stats: stats  # noqa: E731
-    cols, args, shapes = [], [], []  # per shard
-    for fields, w0, w1, w2, valid in shards:
-        F, S = valid.shape
-        pid = fields[:, :, G.G_PATCH].repeat_interleave(
-            S // fields.shape[1], dim=1)
-        frame = torch.arange(F, dtype=torch.int64, device=valid.device)
-        cols.append([t.reshape(-1) for t in (
-            _lo16(w0), _hi16(w0), _lo16(w1), _hi16(w1), _lo16(w2), _hi16(w2)
-        )])  # x, y, z, cy, cu, cv
-        args.append((valid.reshape(-1), pid.reshape(-1),
-                     frame[:, None].expand(F, S).reshape(-1)))
-        shapes.append((F, S))
+    cols, args = zip(*(smooth_slot_arrays(*shard) for shard in shards))
+    shapes = [tuple(shard[4].shape) for shard in shards]
     if cfg.smoothing is not None:
         stats = combine([
             geometry_stats(*c[:3], *a, F, cfg.smoothing)
@@ -650,22 +657,32 @@ def reconstruct_batch_pretiled_shards(shards, cfg, combine=None,
     With ``stats`` (a ``utils.stats.GofStats``) the smoothing passes of
     every shard are one ``recon_smooth`` span, and the counter
     ``smooth_slots`` adds the slots that entered the grids (frames times
-    slot extent, summed over the shards; known on the host). Returns
+    slot extent, summed over the shards; known on the host) and
+    ``smooth_kernel_passes`` the passes that launched the smoothing
+    kernels (read from ``ops.smoothing.thread_passes``, which the apply
+    kernel's wrapper counts after its launch: two a dispatch with both
+    smoothings on CUDA tensors, none on the plain path). Returns
     one ``(ops, counts)`` per shard, as :func:`reconstruct_batch_pretiled`
     returns for the whole."""
     from .payload import wide_words
     from .shift_compact import shift_compact_full
+    from .smoothing import thread_passes
 
     words = [wide_words(fields, cat, cfg) for fields, cat in shards]
     if cfg.smoothing is not None or cfg.attr_smoothing is not None:
+        passes = thread_passes()
         with (nullcontext() if stats is None
               else stage_timer(stats, "recon_smooth")):
             smoothed = smooth_words_shards(
                 [(fields, *w) for (fields, _), w in zip(shards, words)],
                 cfg, combine,
             )
+        # a pass is one apply launch on every shard
+        passes = (thread_passes() - passes) // len(shards)
         if stats is not None:
             stats.count("smooth_slots", sum(w[3].numel() for w in words))
+            if passes:
+                stats.count("smooth_kernel_passes", passes)
         words = [(*sw, w[3]) for sw, w in zip(smoothed, words)]
     return [shift_compact_full(w[:3], w[3]) for w in words]
 

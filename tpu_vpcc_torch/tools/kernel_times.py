@@ -16,6 +16,13 @@ its cat against its plain version's:
 
     python -m tpu_vpcc_torch.tools.kernel_times --pack [--repeats 5]
 
+or the smoothing kernels (``ops/smoothing.py``, ``csrc/grid_smooth.cu``)
+on a flagship wide two-frame dispatch (:func:`smooth_inputs`), each
+pass's statistics and apply beside its plain version, after checking
+their bytes against the plain versions':
+
+    python -m tpu_vpcc_torch.tools.kernel_times --smooth [--repeats 3]
+
 It needs a card; every line names the card and its power limit. With
 ``--repeats N`` each probe (each density) is measured N times in turn;
 a line per probe compares its kernel with its library call
@@ -464,6 +471,187 @@ def time_pack(planes, cfg) -> dict:
                    nbytes=pack_bytes(*planes, cfg))
 
 
+# ---------------------------------------------------------------------------
+# the smoothing kernels
+# ---------------------------------------------------------------------------
+
+def smooth_inputs(device):
+    """The flat slot arrays of a flagship wide two-frame dispatch (the
+    first flagship GOF's two 1280^2 frames, frame seeds 0-1, with
+    geometry and colour smoothing), as ``ops.tiled.smooth_words_shards``
+    takes them from K2W's words on ``device``: ``(cols, (valid, pid,
+    frame), n_frames, cfg)``, ``cols`` the int32 ``[x, y, z, cy, cu,
+    cv]``."""
+    from ..models.flagship import (ATTR_SMOOTHING, GEO_SMOOTHING,
+                                   FlagshipConfig, example_frames,
+                                   example_gof)
+    from ..ops import payload
+    from ..ops.tiled import smooth_slot_arrays
+    from ..runtime import pipeline as P
+
+    fcfg = FlagshipConfig(batch=2)
+    gof = example_gof(fcfg, example_frames(fcfg, seed=0),
+                      geo_smoothing=GEO_SMOOTHING,
+                      attr_smoothing=ATTR_SMOOTHING)
+    cfg, tables, g_bucket = P._gof_tables_and_bucket(gof)
+    di = P._gof_device_inputs(gof, gof.metas, (cfg, tables), g_bucket)
+    fields, cat = di.on_device(device)
+    words = payload.wide_words(fields, cat, di.cfg)
+    cols, args = smooth_slot_arrays(fields, *words)
+    return cols, args, words[3].shape[0], di.cfg
+
+
+def smooth_stats_bytes(xs, ys, zs, a, b, c, valid, pid, frame, n_frames,
+                       cfg) -> int:
+    """The bytes a pass's cell statistics must move: the validity of
+    every slot, each valid slot's coordinates, payload (when it is not
+    the coordinates), pid and frame read once, and the six int32 grids
+    written once."""
+    per_valid = 3 * 4 + (0 if a is xs else 3 * 4) + 4 + 8
+    return (valid.numel() + int(valid.sum()) * per_valid
+            + 6 * 4 * n_frames * cfg.grid_width ** 3)
+
+
+def smooth_apply_bytes(stats, xs, ys, zs, a, b, c, valid, pid, frame,
+                       cfg) -> int:
+    """The bytes a pass's apply must move: every slot's validity and
+    payload read and its three outputs written, a valid slot's
+    coordinates (when the payload is not them), pid and frame read, and
+    of each cell a valid slot's in-range neighbourhood touches, its count
+    read and, where it holds points, its sums, min and max."""
+    from ..ops import smoothing as S
+
+    gs, gw = cfg.grid_size, cfg.grid_width
+    per_valid = (0 if a is xs else 3 * 4) + 4 + 8
+    in_range, corners = S._neighbourhood(xs, ys, zs, frame * gw ** 3, gs,
+                                         gw)
+    use = valid & in_range
+    cells = torch.unique(torch.cat([nid[use] for nid, _ in corners]))
+    filled = int((stats[0][cells] > 0).sum())
+    return (valid.numel() * (1 + 2 * 3 * 4) + int(valid.sum()) * per_valid
+            + cells.numel() * 4 + filled * 5 * 4)
+
+
+def smooth_cases(cols, args, n_frames: int, cfg):
+    """The smoothing kernels on a wide dispatch's flat slot arrays
+    (``cols``, ``args`` and ``n_frames`` as :func:`smooth_inputs` gives
+    them; ``cfg`` the dispatch's ``FrameConfig`` with both smoothings):
+    the geometry pass, then the colour pass on the smoothed positions,
+    each pass's grids and outputs held against the plain versions'.
+    Returns ``(max_abs_err, moved, runs)``: the largest difference over
+    every grid and output (0 when byte-equal), the coordinates and
+    colour components the passes moved, and per half of a pass
+    (``geometry stats``, ``geometry apply``, ``colour stats``, ``colour
+    apply``) its ``(kernel, plain, nbytes)`` for :func:`measure`."""
+    from ..ops import smoothing as S
+
+    xs, ys, zs, cy, cu, cv = cols
+    valid, pid, frame = args
+    F = n_frames
+    geo, attr = cfg.smoothing, cfg.attr_smoothing
+    g_args = (xs, ys, zs, xs, ys, zs, valid, pid, frame)
+    g_stats = S._stats_cuda(*g_args, F, geo)
+    sx, sy, sz = S._apply_cuda(g_stats, *g_args, geo, color=False)
+    c_args = (sx, sy, sz, cy, cu, cv, valid, pid, frame)
+    c_stats = S._stats_cuda(*c_args, F, attr)
+    c_out = S._apply_cuda(c_stats, *c_args, attr, color=True)
+    pairs = (
+        (g_stats, S._stats_plain(*g_args, F, geo)),
+        ((sx, sy, sz),
+         S.geometry_apply_plain(g_stats, *g_args[:3], *g_args[6:], geo)),
+        (c_stats, S._stats_plain(*c_args, F, attr)),
+        (c_out, S.color_apply_plain(c_stats, *c_args, attr)),
+    )
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+              for got, want in pairs for g, w in zip(got, want))
+    moved = (sum(int((a != b).sum()) for a, b in zip((sx, sy, sz),
+                                                     (xs, ys, zs))),
+             sum(int((a != b).sum()) for a, b in zip(c_out, (cy, cu, cv))))
+    runs = {
+        "geometry stats": (
+            lambda: S._stats_cuda(*g_args, F, geo),
+            lambda: S._stats_plain(*g_args, F, geo),
+            smooth_stats_bytes(*g_args, F, geo)),
+        "geometry apply": (
+            lambda: S._apply_cuda(g_stats, *g_args, geo, color=False),
+            lambda: S.geometry_apply_plain(g_stats, *g_args[:3],
+                                           *g_args[6:], geo),
+            smooth_apply_bytes(g_stats, *g_args, geo)),
+        "colour stats": (
+            lambda: S._stats_cuda(*c_args, F, attr),
+            lambda: S._stats_plain(*c_args, F, attr),
+            smooth_stats_bytes(*c_args, F, attr)),
+        "colour apply": (
+            lambda: S._apply_cuda(c_stats, *c_args, attr, color=True),
+            lambda: S.color_apply_plain(c_stats, *c_args, attr),
+            smooth_apply_bytes(c_stats, *c_args, attr)),
+    }
+    return err, moved, runs
+
+
+def smooth_passes(cols, args, n_frames: int, cfg, plain: bool = False):
+    """Both smoothing passes on a dispatch's flat slot arrays (as
+    :func:`smooth_cases` takes them), without the words' unpack and
+    repack: through ``ops.smoothing``'s entries (the kernels on a card),
+    or with ``plain`` in the plain versions on the tensors' device.
+    Returns the smoothed ``(x, y, z)`` and ``(cy, cu, cv)``."""
+    from ..ops import smoothing as S
+
+    xs, ys, zs, cy, cu, cv = cols
+    geo, attr = cfg.smoothing, cfg.attr_smoothing
+    if plain:
+        pos = S.geometry_apply_plain(
+            S._stats_plain(xs, ys, zs, xs, ys, zs, *args, n_frames, geo),
+            xs, ys, zs, *args, geo)
+        c_stats, c_apply = S._stats_plain, S.color_apply_plain
+    else:
+        pos = S.geometry_apply(
+            S.geometry_stats(xs, ys, zs, *args, n_frames, geo),
+            xs, ys, zs, *args, geo)
+        c_stats, c_apply = S.color_stats, S.color_apply
+    c_args = (*pos, cy, cu, cv, *args)
+    return pos, c_apply(c_stats(*c_args, n_frames, attr), *c_args, attr)
+
+
+def smooth_main(repeats: int, smi: str, device) -> dict:
+    """``--smooth``: the smoothing kernels on :func:`smooth_inputs`. Each
+    pass's kernel grids and outputs are first checked against the plain
+    versions' (raises on a difference, :func:`smooth_cases`); then
+    ``repeats`` measurements each, in turn, of the geometry pass's
+    statistics (the initialisation's launch and
+    ``smooth_stats_kernel``) and apply, and the colour pass's on the
+    smoothed positions, beside the plain versions, with their bytes and
+    bounds."""
+    cols, args, F, cfg = smooth_inputs(device)
+    err, moved, runs = smooth_cases(cols, args, F, cfg)
+    if err:
+        raise AssertionError(f"the smoothing kernels' grids or outputs "
+                             f"differ from the plain versions' by up to "
+                             f"{err}")
+    valid = args[0]
+    print(f"smoothing kernels at F={F} S={valid.shape[0] // F}, "
+          f"{int(valid.sum())} valid slots, grid "
+          f"{cfg.smoothing.grid_width}^3 a frame: grids and outputs equal "
+          f"to the plain versions' in both passes; moved {moved[0]} "
+          f"coordinates and {moved[1]} colour components")
+    out = {name: [] for name in runs}
+    for r in range(repeats):
+        for name, (kernel, plain, nbytes) in runs.items():
+            m = measure(kernel, plain, nbytes=nbytes)
+            out[name].append(m)
+            print(measured_line(f"smoothing {name}, measurement {r + 1} of "
+                                f"{repeats}", m, smi))
+    if repeats > 1:
+        for name, ms in out.items():
+            dev = [m["ms"] for m in ms]
+            print(f"smoothing {name} ({smi}), {repeats} measurements: "
+                  f"median {statistics.median(dev):.4f} ms, spread "
+                  f"{max(dev) - min(dev):.4f} ms, "
+                  f"{100 * ms[0]['bound_ms'] / statistics.median(dev):.1f}% "
+                  f"of the bound {ms[0]['bound_ms']:.4f} ms")
+    return {name: ms[0] if len(ms) == 1 else ms for name, ms in out.items()}
+
+
 #: probes whose cases compare only part of the output (P8 each segment's
 #: prefix, P4 the covered rows): their kernels are also held against the
 #: plain version over the whole output
@@ -612,8 +800,11 @@ def main(argv=None) -> int:
                     help="comma-separated probes (default: all twelve)")
     ap.add_argument("--pack", action="store_true",
                     help="time K5, the device pack, instead of the probes")
+    ap.add_argument("--smooth", action="store_true",
+                    help="time the smoothing kernels instead of the probes")
     ap.add_argument("--repeats", type=int, default=1,
-                    help="measurements of each probe or density, in turn")
+                    help="measurements of each probe, density or "
+                         "smoothing kernel, in turn")
     args = ap.parse_args(argv)
     names = [p.strip() for p in args.probes.split(",") if p.strip()]
     unknown = [p for p in names if p not in BIG]
@@ -627,6 +818,10 @@ def main(argv=None) -> int:
     if args.pack:
         print(json.dumps({"card": smi,
                           "pack": pack_main(args.repeats, smi)}))
+        return 0
+    if args.smooth:
+        print(json.dumps({"card": smi,
+                          "smooth": smooth_main(args.repeats, smi, device)}))
         return 0
     results = {p: [] for p in names}
     for r in range(args.repeats):
