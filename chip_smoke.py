@@ -2076,14 +2076,6 @@ def phase_probes():
     ]
 
 
-def _layout(di) -> str:
-    from tpu_vpcc_torch.ops.tiled import narrow_emit_ok
-
-    if not di.use_tiled:
-        return "gather"
-    return "narrow" if narrow_emit_ok(di.cfg) else "wide"
-
-
 def run_batcher(streams, stats=None):
     """The batcher's wave loop on the card over prepared GOFs (one list
     per stream; the prep hands out each stream's next GOF); each
@@ -2126,19 +2118,18 @@ def phase_batcher(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
     want = [list(narrow_out)] * 6 + [list(wide_out), list(gather_out[:4])]
     n_frames = sum(len(w) for w in want)
 
-    merged, chunks = [], []
-    real_chunked, real_device = B._dispatch_chunked, B._dispatch_device
+    calls = []  # (via, frames, layout) of every _dispatch_device call
+    real_device = P._dispatch_device
 
-    def spy_chunked(di, device, stats=None, mesh=None):
-        merged.append((di.n_frames, _layout(di)))
-        return real_chunked(di, device, stats=stats, mesh=mesh)
+    def spy(via):
+        def dispatch(di, device, stats=None, mesh=None):
+            calls.append((via, di.n_frames, di.layout))
+            return real_device(di, device, stats=stats, mesh=mesh)
+        return dispatch
 
-    def spy_device(di, device, stats=None, mesh=None):
-        chunks.append((di.n_frames, _layout(di)))
-        return real_device(di, device, stats=stats, mesh=mesh)
-
-    # the batcher's main path, counted
-    B._dispatch_chunked, B._dispatch_device = spy_chunked, spy_device
+    # the batcher's main path, counted: one call through the batcher per
+    # merged input, which splits into chunks through the pipeline's name
+    B._dispatch_device, P._dispatch_device = spy("batcher"), spy("pipeline")
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2153,7 +2144,9 @@ def phase_batcher(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
                     "K1F": sc.full_launches, "K5": pack.launches}
         peak = torch.cuda.max_memory_allocated()
     finally:
-        B._dispatch_chunked, B._dispatch_device = real_chunked, real_device
+        B._dispatch_device = P._dispatch_device = real_device
+    merged = [(f, layout) for via, f, layout in calls if via == "batcher"]
+    chunks = [(f, layout) for _, f, layout in calls if f <= P.DEVICE_BATCH]
     n = {k: sum(1 for c in chunks if c[1] == k)
          for k in ("narrow", "wide", "gather")}
     print(f"batcher main path: 8 streams of 2 GOFs, {n_frames} frames in "
@@ -2232,7 +2225,7 @@ def phase_batcher(gofs, narrow_out, wide_gofs, wide_out, gather_gofs,
             whole = []
             for _ in range(3):
                 t0 = time.perf_counter()
-                res = B._dispatch_chunked(di, dev)
+                res = P._dispatch_device(di, dev)
                 whole.append(time.perf_counter() - t0)
             check(len(res) == di.n_frames, f"chunk {chunk}: {len(res)} frames")
             ms = event_ms(lambda: dispatch_all(chunk), reps=5, warmup=1)

@@ -25,6 +25,7 @@ from tpu_vpcc.utils.ply import format_ply as ref_format_ply
 from tpu_vpcc.utils.synthetic import make_synthetic_frame
 from tpu_vpcc_torch.parallel import batcher
 from tpu_vpcc_torch.runtime import cli as port_cli
+from tpu_vpcc_torch.runtime import pipeline as P
 from tpu_vpcc_torch.runtime.pipeline import Decoder, Params
 from tpu_vpcc_torch.utils.ply import format_ply
 
@@ -69,26 +70,21 @@ def check_streams(paths, n_frames=None, **kw):
     return got
 
 
-def _layout(di):
-    from tpu_vpcc_torch.ops.tiled import narrow_emit_ok
-
-    if not di.use_tiled:
-        return "gather"
-    return "narrow" if narrow_emit_ok(di.cfg) else "wide"
-
-
-def spy_on(monkeypatch, name):
-    """Record every call of the batcher module's ``name``
-    (``_dispatch_device`` or ``_dispatch_chunked``) as (n_frames, layout,
-    colour mode, group extent)."""
+def spy_on(monkeypatch, *modules):
+    """Record every call of ``_dispatch_device`` made through the name
+    in ``modules`` as (n_frames, layout, colour mode, group extent):
+    through ``batcher`` the merged inputs, one call each; through
+    ``pipeline`` the chunks ``_dispatch_device`` splits a longer input
+    into, and the trailing-layer and secondary passes."""
     calls = []
-    real = getattr(batcher, name)
+    real = P._dispatch_device
 
     def spy(di, device, stats=None, mesh=None):
-        calls.append((di.n_frames, _layout(di), di.color_mode, di.group_cap))
+        calls.append((di.n_frames, di.layout, di.color_mode, di.group_cap))
         return real(di, device, stats=stats, mesh=mesh)
 
-    monkeypatch.setattr(batcher, name, spy)
+    for module in modules:
+        monkeypatch.setattr(module, "_dispatch_device", spy)
     return calls
 
 
@@ -101,7 +97,7 @@ def test_multi_stream_matches_sequential(tmp_path):
 def test_streams_share_device_batches(tmp_path, monkeypatch):
     """Frames from different streams really coalesce into one dispatch."""
     paths = make_streams(tmp_path, n_streams=2, n_frames=1)
-    calls = spy_on(monkeypatch, "_dispatch_device")
+    calls = spy_on(monkeypatch, batcher)
     batched = batcher.decode_streams(paths, params=Params(device="cpu"))
     # initial wave: both streams' single-frame GOFs in ONE device call
     assert calls[0][0] == 2, calls
@@ -166,6 +162,35 @@ def test_batched_mixed_map_counts_match_sequential(tmp_path):
 
 
 @needs_encoder
+def test_batched_three_maps_with_secondary_attributes(tmp_path):
+    """A 3-map stream with two secondary attributes (reflectance and a
+    second texture, as ``test_torch_e2e._stream_raw_eom_secondary`` codes
+    them) batched beside a 2-map stream: the trailing layer's points and
+    both map pairs' secondary values equal the single-stream decode."""
+    paths = []
+    for name, seed, maps, sec in (
+            ("a", 62, 3, [(3, 1, None), (0, 3, None)]), ("b", 63, 2, None)):
+        rng = np.random.default_rng(seed)
+        p = tmp_path / f"{name}.bin"
+        p.write_bytes(build_fixture_stream([
+            make_synthetic_frame(
+                rng, width=64, height=64, occupancy_resolution=8,
+                occupancy_precision=4, map_count=maps, n_patches=2,
+                frame_index=i,
+            )
+            for i in range(2)
+        ], secondary_attrs=sec))
+        paths.append(p)
+    got = check_streams(paths, n_frames=2)
+    # the 3-map frames carry the reflectance and the second texture
+    for k, extra in ((0, True), (1, False)):
+        for f in got[k]:
+            header = f[: f.index(b"end_header")]
+            assert (b"reflectance" in header) == extra, header
+            assert (b"red2" in header) == extra, header
+
+
+@needs_encoder
 def test_eight_concurrent_streams(tmp_path, monkeypatch):
     """BASELINE config 5's shape without a mesh: 8 concurrent streams,
     the first wave's 16 frames merged into one input and dispatched in
@@ -173,12 +198,12 @@ def test_eight_concurrent_streams(tmp_path, monkeypatch):
     from tpu_vpcc_torch.runtime.pipeline import DEVICE_BATCH
 
     paths = make_streams(tmp_path, n_streams=8, n_frames=2)
-    merged = spy_on(monkeypatch, "_dispatch_chunked")
-    calls = spy_on(monkeypatch, "_dispatch_device")
+    calls = spy_on(monkeypatch, batcher, P)
     check_streams(paths, n_frames=2)
-    assert merged[0][0] == 16, merged
-    assert [c[0] for c in calls[:16 // DEVICE_BATCH]] == \
-        [DEVICE_BATCH] * (16 // DEVICE_BATCH)
+    # the merged input, then the chunks _dispatch_device splits it into
+    merged, chunks = calls[0], calls[1:1 + 16 // DEVICE_BATCH]
+    assert merged[0] == 16, calls
+    assert [c[0] for c in chunks] == [DEVICE_BATCH] * (16 // DEVICE_BATCH)
 
 
 @needs_encoder
@@ -192,7 +217,7 @@ def test_narrow_wide_and_gather_streams_batched_together(tmp_path,
         p = tmp_path / f"{name}.bin"
         p.write_bytes(STREAMS[name]())
         paths.append(p)
-    calls = spy_on(monkeypatch, "_dispatch_device")
+    calls = spy_on(monkeypatch, batcher)
     check_streams(paths, n_frames=2, **SMOOTHING)
     assert {c[1] for c in calls} == {"gather", "wide", "narrow"}, calls
 
@@ -257,11 +282,13 @@ def test_prepared_mixed_paths(device, monkeypatch):
     kinds = ("narrow", "wide", "gather")
     streams = [[_prepared_gof(k, s), _prepared_gof(k, s + 2)]
                for k in kinds for s in (0, 10)]
-    calls = spy_on(monkeypatch, "_dispatch_device")
+    calls = spy_on(monkeypatch, batcher, P)
     before = (sc.launches, payload.launches, sc.full_launches,
               pack.launches)
     got = _waves(streams, device=device)
-    n = {k: sum(c[1] == k for c in calls) for k in kinds}
+    # the chunks: a merged input longer than DEVICE_BATCH only splits
+    n = {k: sum(c[1] == k and c[0] <= P.DEVICE_BATCH for c in calls)
+         for k in kinds}
     assert n["narrow"] > 0 and n["wide"] > 0 and n["gather"] > 0, calls
     launched = (sc.launches - before[0], payload.launches - before[1],
                 sc.full_launches - before[2], pack.launches - before[3])
@@ -277,6 +304,57 @@ def test_prepared_mixed_paths(device, monkeypatch):
         oracle = [_prepared_gof(kind, seed, tiled=False),
                   _prepared_gof(kind, seed + 2, tiled=False)]
         assert got[k] == _start_gofs(oracle, use_device=False)
+
+
+# each layout's dispatch function, unsharded and on a mesh (where the
+# gather falls back to the unsharded dispatch)
+ROUTES = {
+    "narrow": ("reconstruct_batch_pretiled_packed",
+               "reconstruct_gof_spatial_pretiled_packed"),
+    "wide": ("reconstruct_batch_pretiled", "reconstruct_gof_spatial_pretiled"),
+    "gather": ("reconstruct_batch", "reconstruct_batch"),
+}
+
+
+@pytest.mark.parametrize("kind", list(ROUTES))
+def test_layout_names_the_dispatch(kind, monkeypatch):
+    """``DeviceInputs.layout`` of a narrow, a smoothed and a rotated GOF
+    is "narrow", "wide" and "gather", and ``_dispatch_device`` calls that
+    route's function, unsharded and on a CPU mesh of two 'space' shards,
+    giving the stats to the wide path only; the frames are the same
+    either way."""
+    import torch
+
+    from tpu_vpcc_torch.ops import reconstruct, tiled
+    from tpu_vpcc_torch.parallel import mesh as port_mesh
+    from tpu_vpcc_torch.parallel import spatial
+    from tpu_vpcc_torch.utils.stats import GofStats
+
+    gof = _prepared_gof(kind, 0)
+    cfg, tables, g_bucket = P._gof_tables_and_bucket(gof, 2)
+    di = P._gof_device_inputs(gof, gof.metas, (cfg, tables), g_bucket)
+    assert di.layout == kind
+    cpu = torch.device("cpu")
+    want = P._dispatch_device(di, cpu)
+
+    called = []
+    for module in (reconstruct, tiled, spatial):
+        for name in {n for pair in ROUTES.values() for n in pair}:
+            if hasattr(module, name):
+                def spy(*a, _real=getattr(module, name), _name=name, **kw):
+                    called.append((_name, "stats" in kw))
+                    return _real(*a, **kw)
+
+                monkeypatch.setattr(module, name, spy)
+    mesh = port_mesh.make_mesh([cpu] * 2, data=1, space=2)
+    for sharded, m in ((0, None), (1, mesh)):
+        called.clear()
+        got = P._dispatch_device(di, cpu, stats=GofStats(), mesh=m)
+        # the first call is the route's; the twins call the kernels below
+        assert called[0] == (ROUTES[kind][sharded], kind == "wide"), called
+        assert len(got) == len(want) == 2
+        for (pos, col), (pos_w, col_w) in zip(got, want):
+            assert np.array_equal(pos, pos_w) and np.array_equal(col, col_w)
 
 
 def _content_gof(seed, n_patches, rgb, tiled=True):
@@ -307,8 +385,6 @@ def test_colour_mode_and_group_bucket_split_dispatches(monkeypatch):
     RGB 4:4:4: equal config, other colour mode) and C (YUV, sixty patches:
     equal config, another group bucket) get dispatches of their own. Each stream equals
     ``Decoder.start_gofs`` and the oracle."""
-    from tpu_vpcc_torch.runtime import pipeline as P
-
     specs = {"A": (0, 6, False), "B": (0, 6, True), "C": (4, 60, False),
              "D": (4, 6, False)}
     gofs = {k: _content_gof(*v) for k, v in specs.items()}
@@ -320,7 +396,7 @@ def test_colour_mode_and_group_bucket_split_dispatches(monkeypatch):
     assert staged["A"].batch_key == staged["D"].batch_key
     assert staged["A"].group_cap != staged["C"].group_cap
 
-    merged = spy_on(monkeypatch, "_dispatch_chunked")
+    merged = spy_on(monkeypatch, batcher)
     got = _waves([[g] for g in gofs.values()])
     cap_a, cap_c = staged["A"].group_cap, staged["C"].group_cap
     assert sorted(merged) == sorted([
@@ -344,18 +420,16 @@ def test_host_and_device_packed_inputs_never_merge(monkeypatch):
     stream equals ``Decoder.start_gofs``."""
     from test_torch_dispatch import host_pack_staging
 
-    from tpu_vpcc_torch.runtime import pipeline as P
-
     streams = [[_prepared_gof("narrow", s)] for s in (0, 2, 4, 6)]
     host_packed = {id(streams[1][0]), id(streams[3][0])}
     merged = []
-    real_chunked = batcher._dispatch_chunked
+    real = batcher._dispatch_device
 
     def spy(di, device, stats=None, mesh=None):
         merged.append((di.n_frames, di.staging, len(di.arrays)))
-        return real_chunked(di, device, stats=stats, mesh=mesh)
+        return real(di, device, stats=stats, mesh=mesh)
 
-    monkeypatch.setattr(batcher, "_dispatch_chunked", spy)
+    monkeypatch.setattr(batcher, "_dispatch_device", spy)
     with host_pack_staging(only=lambda g: id(g) in host_packed) as restaged:
         staged = []
         for s in (0, 1):

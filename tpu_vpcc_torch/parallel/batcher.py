@@ -7,9 +7,12 @@ frames from all streams are reconstructed in shared device dispatches:
 GOFs whose :class:`~tpu_vpcc_torch.runtime.pipeline.DeviceInputs` share a
 batch key (staged ``FrameConfig``, layout, colour mode, group extent,
 and whether the cat is packed on the device or the host) are
-concatenated along the frame axis and dispatched together, in chunks of
-``pipeline.DEVICE_BATCH`` frames, through the same kernels as the
-single-stream ``Decoder``. With a ``mesh``, each shared batch is chunked
+concatenated along the frame axis into one input, which
+``pipeline._dispatch_device`` runs in chunks of ``pipeline.DEVICE_BATCH``
+frames through the same kernels as the single-stream ``Decoder``. Each
+GOF's slice of the results is then finished as the ``Decoder`` finishes
+a chunk (``pipeline._finish_frames``: trailing layers, secondary
+attributes, host tails). With a ``mesh``, each shared batch is chunked
 at ``DEVICE_BATCH x data`` frames and its tiled chunks shard frames over
 the mesh's 'data' axis and groups over 'space'
 (``tpu_vpcc_torch.parallel.spatial``).
@@ -26,24 +29,15 @@ import numpy as np
 
 from ..bitio import Bitstream
 from ..reconstruction.pointset import PointSet3
-from ..runtime import pipeline
 from ..runtime.pipeline import (
     DeviceInputs,
     GofData,
     Params,
-    _append_eom_points,
-    _append_layer_frame,
-    _append_plr_points,
-    _append_raw_points,
     _dispatch_device,
-    _emit_pointset,
+    _finish_frames,
     _gof_device_inputs,
-    _gof_map_pair_view,
-    _gof_tables_and_bucket,
-    _merge_layer_sec_vals,
-    _meta_has_plr,
+    _plan_gof,
     _reconstruct_gof_oracle,
-    _secondary_chunk_values,
     _st,
     prepare_gof,
     resolve_device,
@@ -72,24 +66,6 @@ def _concat_inputs(dis: List[DeviceInputs]) -> DeviceInputs:
         ),
         n_frames=sum(di.n_frames for di in dis),
     )
-
-
-def _dispatch_chunked(di: DeviceInputs, device, stats=None, mesh=None):
-    """Dispatch a (possibly merged) batch in ``pipeline.DEVICE_BATCH``
-    frame chunks (``DEVICE_BATCH x data`` on a ``mesh``), sliced without
-    copies; returns the flat per-frame result list."""
-    chunk = pipeline.DEVICE_BATCH * (
-        mesh.shape["data"] if mesh is not None else 1
-    )
-    out = []
-    for i in range(0, di.n_frames, chunk):
-        sub = replace(
-            di,
-            arrays=tuple(a[i : i + chunk] for a in di.arrays),
-            n_frames=min(chunk, di.n_frames - i),
-        )
-        out.extend(_dispatch_device(sub, device, stats=stats, mesh=mesh))
-    return out
 
 
 def _decode_waves(
@@ -124,7 +100,7 @@ def _decode_waves(
             finished, pending = wait(pending, return_when=when)
             first_wave = False
             # one wave: every GOF whose host prep has completed by now
-            items = []  # (state, gof, DeviceInputs, tables, g_bucket, layers)
+            items = []  # (state, GofPlan, DeviceInputs)
             for fut in finished:
                 state, gof = fut.result()
                 if gof is None or not gof.metas:
@@ -136,79 +112,29 @@ def _decode_waves(
                         state.next_frame += 1
                     pending.add(pool.submit(run, state))
                     continue
-                layer_views = []
-                if gof.map_count > 2:
-                    # >2 maps: the batched dispatch covers the map-0/1
-                    # pair; trailing layers run per GOF after it (the
-                    # same drop_map0 passes as _reconstruct_gof_device)
-                    layer_views = [
-                        _gof_map_pair_view(gof, m - 1)
-                        for m in range(2, gof.map_count)
-                    ]
-                    gof = _gof_map_pair_view(gof, 0)
-                with _st(stats, "recon_tables"):
-                    cfg, tables, g_bucket = _gof_tables_and_bucket(gof, space)
+                # >2 maps: the merged dispatch covers the map-0/1 pair;
+                # the trailing layers run per GOF in _finish_frames
+                plan = _plan_gof(gof, stats, space)
                 with _st(stats, "recon_stage"):
-                    di = _gof_device_inputs(gof, gof.metas, (cfg, tables),
-                                            g_bucket)
-                items.append((state, gof, di, (cfg, tables), g_bucket,
-                              layer_views))
+                    di = _gof_device_inputs(plan.gof, plan.gof.metas,
+                                            plan.prebuilt, plan.g_bucket)
+                items.append((state, plan, di))
                 pending.add(pool.submit(run, state))
 
             by_key: Dict[object, list] = {}
             for it in items:
                 by_key.setdefault(it[2].batch_key, []).append(it)
             for group in by_key.values():
-                merged = _concat_inputs([it[2] for it in group])
-                results = _dispatch_chunked(merged, device, stats=stats,
-                                            mesh=mesh)
+                merged = _concat_inputs([di for _, _, di in group])
+                # _dispatch_device chunks the merged input
+                results = _dispatch_device(merged, device, stats=stats,
+                                           mesh=mesh)
                 offset = 0
-                for state, gof, di, prebuilt, g_b, layer_views in group:
-                    sec_vals = (
-                        _secondary_chunk_values(gof, gof.metas, prebuilt, g_b,
-                                                device, stats=stats,
-                                                mesh=mesh)
-                        if gof.sec_attrs else None
-                    )
-                    layer_results = None
-                    if layer_views:
-                        lcfg = replace(prebuilt[0], drop_map0=True)
-                        layer_results = [
-                            _dispatch_chunked(
-                                _gof_device_inputs(lv, lv.metas,
-                                                   (lcfg, prebuilt[1]), g_b),
-                                device, stats=stats, mesh=mesh,
-                            )
-                            for lv in layer_views
-                        ]
-                        if sec_vals is not None:
-                            for lv in layer_views:
-                                _merge_layer_sec_vals(
-                                    sec_vals,
-                                    _secondary_chunk_values(
-                                        lv, lv.metas, (lcfg, prebuilt[1]),
-                                        g_b, device, stats=stats, mesh=mesh,
-                                    ),
-                                )
-                    for j, (pos, col) in enumerate(
-                        results[offset : offset + di.n_frames]
-                    ):
-                        with _st(stats, "recon_emit"):
-                            ps = _emit_pointset(pos, col, gof)
-                            if layer_results is not None:
-                                for lres in layer_results:
-                                    _append_layer_frame(ps, *lres[j], gof)
-                            if sec_vals is not None:
-                                ps.extra_attrs = sec_vals[j]
-                            meta = gof.metas[j]
-                            # the same tail order as the single-stream GOF
-                            # decode: PLR, then EOM, then raw
-                            if _meta_has_plr(gof, meta):
-                                _append_plr_points(ps, gof, meta)
-                            if meta.eom_patches:
-                                _append_eom_points(ps, gof, meta)
-                            if meta.raw_patches:
-                                _append_raw_points(ps, gof, meta)
+                for state, plan, di in group:
+                    for ps in _finish_frames(
+                            plan, slice(None),
+                            results[offset : offset + di.n_frames], device,
+                            stats=stats, mesh=mesh):
                         yield state.index, state.next_frame, ps
                         state.next_frame += 1
                     offset += di.n_frames

@@ -16,8 +16,7 @@ Per GOF:
   4. device (``Params.device``, or the shards of ``Params.mesh``): the
      staged arrays cross, K5 packs the cat from the planes
      (``ops.pack.pack_cat``) where the host did not, and the dispatch is
-     routed as the reference routes, on ``DeviceInputs.staging`` and
-     then ``ops.tiled.narrow_emit_ok``:
+     routed as the reference routes, on ``DeviceInputs.layout``:
      - the narrow path: cat-row gather, narrow words stage and the K1
        compaction (``ops.tiled.reconstruct_batch_pretiled_packed``);
      - the wide path, for geometry or colour smoothing and 45-degree
@@ -55,7 +54,7 @@ from contextlib import nullcontext
 from dataclasses import dataclass, replace
 from functools import partial
 from pathlib import Path
-from typing import Iterator, Optional
+from typing import Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -1076,7 +1075,8 @@ class DeviceInputs:
       - ``"gather"``: the gather fallback's (fields, occ, geo0, geo1,
         attr_y, attr_u, attr_v) in canvas layout.
 
-    Only :meth:`on_device` and :meth:`cat_stager` read the layout."""
+    Only :meth:`on_device` and :meth:`cat_stager` read the staging;
+    :attr:`layout` names the dispatch's route."""
 
     cfg: object  # ops.reconstruct.FrameConfig
     staging: str
@@ -1091,6 +1091,18 @@ class DeviceInputs:
     def use_tiled(self) -> bool:
         """A tiled dispatch (narrow or wide path), not the gather."""
         return self.staging != "gather"
+
+    @property
+    def layout(self) -> str:
+        """The dispatch's route and the layout of its compacted operands:
+        "gather" unless :attr:`use_tiled`, else "narrow" where
+        ``ops.tiled.narrow_emit_ok`` holds, else "wide" (smoothing,
+        45-degree views)."""
+        from ..ops.tiled import narrow_emit_ok
+
+        if not self.use_tiled:
+            return "gather"
+        return "narrow" if narrow_emit_ok(self.cfg) else "wide"
 
     @property
     def group_cap(self) -> int:
@@ -1414,12 +1426,21 @@ def _fetch_sharded_packed(ops, counts, n_space: int, s_loc: int,
     return per_frame
 
 
+def _route(di: DeviceInputs, routes: dict, stats):
+    """``di.layout`` and its dispatch function in ``routes``; the wide
+    path gets ``stats`` (its ``recon_smooth`` span and counters)."""
+    layout = di.layout
+    dispatch = routes[layout]
+    if layout == "wide":
+        dispatch = partial(dispatch, stats=stats)
+    return layout, dispatch
+
+
 def _dispatch_sharded(di: DeviceInputs, mesh, stats=None):
     """A tiled dispatch on ``mesh`` (its group extent divides by the
     'space' axis): frames padded to the 'data' axis, the narrow or the
     wide path per shard (``parallel.spatial``), the sharded fetch; the
     padding frames are cut off."""
-    from ..ops.tiled import narrow_emit_ok
     from ..parallel.mesh import pad_batch
     from ..parallel.spatial import (
         reconstruct_gof_spatial_pretiled,
@@ -1430,13 +1451,12 @@ def _dispatch_sharded(di: DeviceInputs, mesh, stats=None):
     padded = replace(di, arrays=tuple(pad_batch(a, mesh.shape["data"])
                                       for a in di.arrays))
     s_loc = di.group_cap // n_space * di.cfg.slots_per_block
-    # one predicate for sharded and unsharded dispatches: K1 has no sort
-    # key, so the reference's shard-extent bound has no counterpart
-    if narrow_emit_ok(di.cfg):
-        layout, dispatch = "narrow", reconstruct_gof_spatial_pretiled_packed
-    else:
-        layout = "wide"
-        dispatch = partial(reconstruct_gof_spatial_pretiled, stats=stats)
+    # the unsharded dispatch's layout: K1 has no sort key, so the
+    # reference's shard-extent bound has no counterpart
+    layout, dispatch = _route(di, {
+        "narrow": reconstruct_gof_spatial_pretiled_packed,
+        "wide": reconstruct_gof_spatial_pretiled,
+    }, stats)
     with _st(stats, "recon_dispatch"):
         ops, counts, _ = dispatch(mesh, *padded.cat_stager(), di.cfg)
     with _st(stats, "recon_fetch"):
@@ -1447,16 +1467,16 @@ def _dispatch_sharded(di: DeviceInputs, mesh, stats=None):
 
 
 def _dispatch_device(di: DeviceInputs, device, stats=None, mesh=None):
-    """Run one device dispatch: the gather fallback unless
-    ``di.use_tiled``, else the narrow path or, for smoothing and
-    45-degree views, the wide one, on the cat that K5 packs on the
+    """Run one device dispatch on the route ``di.layout`` names: the
+    gather fallback, the narrow path or, for smoothing and 45-degree
+    views, the wide one, the tiled paths on the cat that K5 packs on the
     device from the staged planes or that crosses from the host
-    (``di.staging``); with a ``mesh``, tiled dispatches of up to
-    ``DEVICE_BATCH x data`` frames shard over it. Returns a per-frame
-    list of host (positions (n,3) u16, colors (n,3)) in emission order."""
+    (``di.staging``); inputs longer than ``DEVICE_BATCH`` frames
+    (``DEVICE_BATCH x data`` on a ``mesh``) run in chunks of that many;
+    with a ``mesh``, tiled chunks shard over it. Returns a per-frame list
+    of host (positions (n,3) u16, colors (n,3)) in emission order."""
     from ..ops.reconstruct import reconstruct_batch
     from ..ops.tiled import (
-        narrow_emit_ok,
         reconstruct_batch_pretiled,
         reconstruct_batch_pretiled_packed,
     )
@@ -1495,13 +1515,11 @@ def _dispatch_device(di: DeviceInputs, device, stats=None, mesh=None):
             stats.count("mesh_fallback_dispatches")
         # back to DEVICE_BATCH chunks on the single device
         return _dispatch_device(di, device, stats=stats)
-    if not di.use_tiled:
-        layout, dispatch = "gather", reconstruct_batch
-    elif narrow_emit_ok(di.cfg):
-        layout, dispatch = "narrow", reconstruct_batch_pretiled_packed
-    else:
-        layout, dispatch = "wide", partial(reconstruct_batch_pretiled,
-                                           stats=stats)
+    layout, dispatch = _route(di, {
+        "gather": reconstruct_batch,
+        "narrow": reconstruct_batch_pretiled_packed,
+        "wide": reconstruct_batch_pretiled,
+    }, stats)
     with _st(stats, "recon_dispatch"):
         with _st(stats, "recon_h2d"):
             inputs = di.on_device(device)
@@ -1558,68 +1576,99 @@ def _secondary_chunk_values(gof: GofData, metas, prebuilt, g_bucket,
     return out
 
 
-def _reconstruct_gof_device(gof: GofData, device, stats=None,
-                            mesh=None) -> Iterator[PointSet3]:
-    """Device stage for a whole GOF in chunks of DEVICE_BATCH frames
-    (``DEVICE_BATCH x data`` on a ``mesh``, whose 'space' axis the group
-    bucket divides by). M-map GOFs (M > 2) run the map-0/1 pass plus one
-    trailing-layer pass per further map (``drop_map0``), whose points
-    append per frame after the primary points, before the raw/EOM/PLR
-    host tails."""
-    if not gof.metas:
-        return
+class GofPlan(NamedTuple):
+    """What every chunk of a GOF's device reconstruction shares
+    (:func:`_plan_gof`)."""
+
+    gof: GofData  # the primary, map-0/1 GOF
+    layer_views: list  # one map-pair view per trailing map (M > 2)
+    prebuilt: tuple  # (FrameConfig, per-frame group tables)
+    g_bucket: int
+    layer_cfg: object  # the trailing layers' drop_map0 FrameConfig
+
+
+def _plan_gof(gof: GofData, stats=None, space: int = 1) -> GofPlan:
+    """Split off the map-pair views and build the GOF's tables and group
+    bucket (``space``, the mesh's 'space' axis size, divides it) under
+    the ``recon_tables`` span."""
     layer_views = []
     if gof.map_count > 2:
         layer_views = [
             _gof_map_pair_view(gof, m - 1) for m in range(2, gof.map_count)
         ]
         gof = _gof_map_pair_view(gof, 0)
-    chunk = DEVICE_BATCH * (mesh.shape["data"] if mesh is not None else 1)
-    space = mesh.shape["space"] if mesh is not None else 1
     with _st(stats, "recon_tables"):
         cfg, tables, g_bucket = _gof_tables_and_bucket(gof, space)
     layer_cfg = replace(cfg, drop_map0=True) if layer_views else None
-    for i in range(0, len(gof.metas), chunk):
-        metas = gof.metas[i : i + chunk]
-        chunk_tables = tables[i : i + chunk]
-        with _st(stats, "recon_stage"):
-            di = _gof_device_inputs(gof, metas, (cfg, chunk_tables), g_bucket)
-        results = _dispatch_device(di, device, stats=stats, mesh=mesh)
-        layer_results = [
-            _dispatch_device(
-                _gof_device_inputs(
-                    lv, lv.metas[i : i + chunk], (layer_cfg, chunk_tables),
-                    g_bucket,
-                ),
-                device, stats=stats, mesh=mesh,
-            )
-            for lv in layer_views
-        ]
-        sec_vals = (
-            _secondary_chunk_values(
-                gof, metas, (cfg, chunk_tables), g_bucket, device,
-                stats=stats, mesh=mesh,
-            )
-            if gof.sec_attrs else None
+    return GofPlan(gof, layer_views, (cfg, tables), g_bucket, layer_cfg)
+
+
+def _finish_frames(plan: GofPlan, frames: slice, results, device,
+                   stats=None, mesh=None) -> Iterator[PointSet3]:
+    """The ``frames`` of a planned GOF from their primary dispatch's
+    ``results``: one trailing-layer pass per further map, the secondary
+    attributes of the primary and of each layer, then per frame, under
+    ``recon_emit``, its ``PointSet3`` with the layers' points, the extra
+    attributes and the PLR, EOM and raw host tails, in that order."""
+    gof, g_bucket = plan.gof, plan.g_bucket
+    cfg, tables = plan.prebuilt
+    metas, chunk_tables = gof.metas[frames], tables[frames]
+    layer_pre = (plan.layer_cfg, chunk_tables)
+    layer_results = [
+        _dispatch_device(
+            _gof_device_inputs(lv, lv.metas[frames], layer_pre, g_bucket),
+            device, stats=stats, mesh=mesh,
         )
-        if sec_vals is not None:
-            for lv in layer_views:
-                _merge_layer_sec_vals(sec_vals, _secondary_chunk_values(
-                    lv, lv.metas[i : i + chunk], (layer_cfg, chunk_tables),
-                    g_bucket, device, stats=stats, mesh=mesh,
-                ))
-        for j, (pos, col) in enumerate(results):
-            with _st(stats, "recon_emit"):
-                ps = _emit_pointset(pos, col, gof)
-                for lres in layer_results:
-                    _append_layer_frame(ps, *lres[j], gof)
-                if sec_vals is not None:
-                    ps.extra_attrs = sec_vals[j]
-                meta = metas[j]
-                if _meta_has_plr(gof, meta):
-                    _append_plr_points(ps, gof, meta)
-                if meta.eom_patches:
-                    _append_eom_points(ps, gof, meta)
-                if meta.raw_patches:
-                    _append_raw_points(ps, gof, meta)
-            yield ps
+        for lv in plan.layer_views
+    ]
+    sec_vals = None
+    if gof.sec_attrs:
+        sec_vals = _secondary_chunk_values(
+            gof, metas, (cfg, chunk_tables), g_bucket, device, stats=stats,
+            mesh=mesh,
+        )
+        for lv in plan.layer_views:
+            _merge_layer_sec_vals(sec_vals, _secondary_chunk_values(
+                lv, lv.metas[frames], layer_pre, g_bucket, device,
+                stats=stats, mesh=mesh,
+            ))
+    for j, (pos, col) in enumerate(results):
+        with _st(stats, "recon_emit"):
+            ps = _emit_pointset(pos, col, gof)
+            for lres in layer_results:
+                _append_layer_frame(ps, *lres[j], gof)
+            if sec_vals is not None:
+                ps.extra_attrs = sec_vals[j]
+            meta = metas[j]
+            if _meta_has_plr(gof, meta):
+                _append_plr_points(ps, gof, meta)
+            if meta.eom_patches:
+                _append_eom_points(ps, gof, meta)
+            if meta.raw_patches:
+                _append_raw_points(ps, gof, meta)
+        yield ps
+
+
+def _reconstruct_gof_device(gof: GofData, device, stats=None,
+                            mesh=None) -> Iterator[PointSet3]:
+    """Device stage for a whole GOF in chunks of DEVICE_BATCH frames
+    (``DEVICE_BATCH x data`` on a ``mesh``, whose 'space' axis the group
+    bucket divides by): the plan, then per chunk the staging, one
+    dispatch and :func:`_finish_frames`. M-map GOFs (M > 2) run the
+    map-0/1 pass plus one trailing-layer pass per further map
+    (``drop_map0``), whose points append per frame after the primary
+    points, before the raw/EOM/PLR host tails."""
+    if not gof.metas:
+        return
+    chunk = DEVICE_BATCH * (mesh.shape["data"] if mesh is not None else 1)
+    space = mesh.shape["space"] if mesh is not None else 1
+    plan = _plan_gof(gof, stats, space)
+    cfg, tables = plan.prebuilt
+    for i in range(0, len(gof.metas), chunk):
+        frames = slice(i, i + chunk)
+        with _st(stats, "recon_stage"):
+            di = _gof_device_inputs(plan.gof, plan.gof.metas[frames],
+                                    (cfg, tables[frames]), plan.g_bucket)
+        results = _dispatch_device(di, device, stats=stats, mesh=mesh)
+        yield from _finish_frames(plan, frames, results, device,
+                                  stats=stats, mesh=mesh)
