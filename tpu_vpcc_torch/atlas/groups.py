@@ -42,7 +42,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..v3c.syntax import UnsupportedFeature
-from .patches import FrameMeta, PatchOrientation
+from .patches import FrameMeta, Patch, PatchOrientation
 
 # group-table field indices
 (
@@ -347,3 +347,202 @@ def build_group_table(
         fields=fields, n_groups=n_groups, block_to_patch=owner,
         tiled_ok=tiled_ok, trim=trim,
     )
+
+
+# per-patch parameter columns of build_group_tables
+(
+    _P_SU0, _P_SV0,                # size in blocks, clamped at 0
+    _P_A, _P_B, _P_CXB, _P_C, _P_D, _P_CYB,  # orientation_coeffs(1)
+    _P_CX, _P_CY,                  # orientation_coeffs(res) origins
+    _P_U1, _P_LODX, _P_V1, _P_LODY,
+    _P_D1, _P_MODE, _P_NORMAL, _P_TANGENT, _P_BITANGENT, _P_PLANE,
+    _P_SWAP,                       # pixel tile transposed (SWAP/MROT270)
+    _P_GATHER,                     # pixel tile leaves block alignment
+    _P_NONALIGNED,                 # ... and res > 1 (ownership hazard)
+    _P_QUANTIZED, _P_SX, _P_SY,    # size_2d_in_pixel (0, 0 when None)
+) = range(26)
+
+# the table columns that hold one value per patch, and their parameters
+_CONST_FIELDS = (
+    (G_A, _P_A), (G_B, _P_B), (G_C, _P_C), (G_D, _P_D),
+    (G_LODX, _P_LODX), (G_LODY, _P_LODY), (G_D1, _P_D1),
+    (G_MODE, _P_MODE), (G_NORMAL, _P_NORMAL), (G_TANGENT, _P_TANGENT),
+    (G_BITANGENT, _P_BITANGENT), (G_SWAP, _P_SWAP), (G_PLANE, _P_PLANE),
+)
+_TILE_SWAPPED = frozenset({PatchOrientation.SWAP, PatchOrientation.MROT270})
+
+
+def build_group_tables(
+    metas, occupancy_resolution: int = 0, occ_provider_for=None,
+    occ_precision: int = 1, g_cap: int = 0,
+):
+    """:func:`build_group_table` for every frame of ``metas``, each
+    frame's table built in one vectorised pass: the same ``fields``,
+    ``n_groups``, ``block_to_patch``, ``tiled_ok`` and ``trim``, byte for
+    byte, and the same exceptions.
+
+    ``occ_provider_for(meta)`` returns that frame's ``occ_provider``
+    (None: no occupancy plane). Returns ``(tables, gated)``, where
+    ``gated`` counts the frames that took the occupancy-gated ownership
+    pass (``_occupancy_gated_owner``)."""
+    tables, gated = [], 0
+    for meta in metas:
+        provider = occ_provider_for(meta) if occ_provider_for else None
+        table, was_gated = _frame_group_table(
+            meta, g_cap, occupancy_resolution, provider, occ_precision
+        )
+        tables.append(table)
+        gated += was_gated
+    return tables, gated
+
+
+def _patch_params(patch: Patch, res: int):
+    su0, sv0 = patch.size_uv0
+    a, b, cxb, c, d, cyb = patch.orientation_coeffs(1)
+    cx, cy = patch.orientation_coeffs(res)[2::3]
+    o = patch.patch_orientation
+    quantized = patch.size_2d_in_pixel is not None
+    return (
+        max(su0, 0), max(sv0, 0), a, b, cxb, c, d, cyb, cx, cy,
+        patch.uv1[0], patch.level_of_detail[0],
+        patch.uv1[1], patch.level_of_detail[1],
+        patch.d1, patch.projection_mode, *patch.axes,
+        patch.axis_of_additional_plane, o in _TILE_SWAPPED,
+        o != PatchOrientation.DEFAULT and o not in _TILE_SWAPPED,
+        res > 1 and o not in _BLOCK_ALIGNED,
+        quantized, *(patch.size_2d_in_pixel if quantized else (0, 0)),
+    )
+
+
+def _frame_group_table(meta: FrameMeta, g_cap: int,
+                       occupancy_resolution: int, occ_provider,
+                       occ_precision: int):
+    """One frame's table as :func:`build_group_table` builds it, and
+    whether it took the occupancy-gated owner. Every patch block is one
+    row, in emission order (patches ascending, (v0, u0) raster within a
+    patch); ownership, the owned rows and the fields are array
+    operations over the rows."""
+    patches = meta.patches
+    if occupancy_resolution > 0:
+        res = occupancy_resolution
+    elif patches:
+        res = patches[0].occupancy_resolution
+    else:
+        res = 16
+    for pidx, p in enumerate(patches):
+        if p.occupancy_resolution != res:
+            raise ValueError(
+                f"patch {pidx} occupancy_resolution "
+                f"{p.occupancy_resolution} != table resolution {res}"
+            )
+    bw = meta.width // res
+    bh = meta.height // res
+    if g_cap <= 0:
+        g_cap = bh * bw
+    fields = np.zeros((g_cap, N_GROUP_FIELDS), dtype=np.int32)
+    if not patches:
+        return GroupTable(
+            fields=fields, n_groups=0,
+            block_to_patch=np.zeros((bh, bw), dtype=np.int32),
+        ), False
+
+    n_patches = len(patches)
+    par = np.array([_patch_params(p, res) for p in patches], dtype=np.int64)
+    counts = par[:, _P_SU0] * par[:, _P_SV0]
+    ends = np.cumsum(counts)
+    pid = np.repeat(np.arange(n_patches, dtype=np.int32), counts)
+    # in-patch raster index -> (u0, v0), v0-major as np.meshgrid gives
+    v0, u0 = np.divmod(np.arange(pid.shape[0]) - (ends - counts)[pid],
+                       par[pid, _P_SU0])
+    a, b, cxb, c, d, cyb = par[:, _P_A:_P_CYB + 1].T
+    bx = a[pid] * u0 + b[pid] * v0 + cxb[pid]
+    by = c[pid] * u0 + d[pid] * v0 + cyb[pid]
+    outside = (bx < 0) | (bx >= bw) | (by < 0) | (by >= bh)
+    if outside.any():
+        pidx = int(pid[outside.argmax()])
+        raise ValueError(
+            f"patch {pidx} footprint outside canvas "
+            f"(orientation {patches[pidx].patch_orientation!r})"
+        )
+    flat = by * bw + bx
+
+    # contested blocks: the last covering patch wins, or the first with
+    # meta.patch_precedence; a max over each block's rows keeps that
+    # deterministic
+    owner = np.zeros(bh * bw, dtype=np.int32)
+    if meta.patch_precedence:
+        np.maximum.at(owner, flat, n_patches - pid)
+        owner = np.where(owner > 0, n_patches + 1 - owner, 0).astype(np.int32)
+    else:
+        np.maximum.at(owner, flat, pid + 1)
+
+    gated = False
+    nonaligned = par[:, _P_NONALIGNED].astype(bool)
+    if nonaligned.any():
+        cover = np.bincount(flat, minlength=bh * bw)
+        if bool((nonaligned[pid] & (cover[flat] >= 2)).any()):
+            if occ_provider is None:
+                raise UnsupportedFeature(
+                    "overlapping non-block-aligned patches need the "
+                    "occupancy-gated ownership pass, and no occupancy plane "
+                    "was provided to build_group_table"
+                )
+            per_patch = [
+                tuple(x[e - su * sv:e].reshape(sv, su)
+                      for x in (u0, v0, bx, by))
+                for e, su, sv in zip(ends.tolist(), par[:, _P_SU0].tolist(),
+                                     par[:, _P_SV0].tolist())
+            ]
+            owner = _occupancy_gated_owner(
+                meta, per_patch, (bh, bw), occ_provider(), occ_precision
+            ).ravel()
+            gated = True
+
+    owned = np.flatnonzero(owner[flat] == pid + 1)
+    n_groups = owned.shape[0]
+    if n_groups > g_cap:
+        raise ValueError("group capacity exceeded")
+    opid = pid[owned]
+    has_rows = np.bincount(opid, minlength=n_patches) > 0
+    # build_group_table writes these as Python ints, which NumPy refuses
+    # outside int32 (a corrupt stream's Exp-Golomb LoD, say)
+    const = par[has_rows][:, [k for _, k in _CONST_FIELDS]]
+    if const.size and (const.min() < -(1 << 31) or const.max() >= 1 << 31):
+        raise OverflowError("a patch's group field is out of bounds for int32")
+    # the per-patch columns, with each patch's offsets of X00, Y00, T00
+    # and B00: X00 = a*u0*res + b*v0*res + cx = res*(bx - cxb) + cx
+    tmpl = np.zeros((n_patches, N_GROUP_FIELDS), dtype=np.int64)
+    tmpl[:, G_VALID] = 1
+    for g, k in _CONST_FIELDS:
+        tmpl[:, g] = par[:, k]
+    tmpl[:, G_PATCH] = np.arange(n_patches)
+    tmpl[:, G_X00] = par[:, _P_CX] - res * cxb
+    tmpl[:, G_Y00] = par[:, _P_CY] - res * cyb
+    tmpl[:, G_T00] = par[:, _P_U1]
+    tmpl[:, G_B00] = par[:, _P_V1]
+    rows = tmpl[opid]
+    obx, oby = bx[owned], by[owned]
+    rows[:, G_X00] += res * obx
+    rows[:, G_Y00] += res * oby
+    us = u0[owned] * res
+    vs = v0[owned] * res
+    rows[:, G_T00] += us * par[opid, _P_LODX]
+    rows[:, G_B00] += vs * par[opid, _P_LODY]
+    rows[:, G_BLOCKID] = oby * bw + obx
+    rows[:, G_EMITBASE] = np.arange(n_groups) * (res * res * 2)
+    fields[:n_groups] = rows
+
+    tiled_ok = not bool((par[:, _P_GATHER].astype(bool) & has_rows).any())
+    trim = None
+    if (par[:, _P_QUANTIZED].astype(bool) & has_rows).any():
+        # quantized extents: patch-space pixel limits of each owned
+        # block, clamped to the tile edge (as build_group_table)
+        trim = np.full((g_cap, 2), res, dtype=np.int32)
+        q = np.flatnonzero(par[opid, _P_QUANTIZED])
+        trim[q, 0] = np.clip(par[opid[q], _P_SX] - us[q], 1, res)
+        trim[q, 1] = np.clip(par[opid[q], _P_SY] - vs[q], 1, res)
+    return GroupTable(
+        fields=fields, n_groups=n_groups,
+        block_to_patch=owner.reshape(bh, bw),
+        tiled_ok=tiled_ok, trim=trim,
+    ), gated

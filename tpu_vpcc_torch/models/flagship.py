@@ -151,9 +151,11 @@ def example_batch_inputs(cfg: FlagshipConfig, seed: int = 0, frames=None,
     each with a leading frame axis (attributes with a map axis next)."""
     frames = example_frames(cfg, seed=seed, **kw) if frames is None else frames
 
-    def one(sf):
+    tables, _ = G.build_group_tables([sf.meta for sf in frames])
+
+    def one(sf, table):
         return (
-            G.build_group_table(sf.meta).fields,
+            table.fields,
             sf.occ_plane,
             sf.geo_planes[0],
             sf.geo_planes[1] if cfg.map_count > 1 else sf.geo_planes[0],
@@ -162,7 +164,7 @@ def example_batch_inputs(cfg: FlagshipConfig, seed: int = 0, frames=None,
             np.stack([p[2] for p in sf.attr_planes]),
         )
 
-    per = [one(sf) for sf in frames]
+    per = [one(sf, t) for sf, t in zip(frames, tables)]
     return tuple(np.stack([f[i] for f in per]) for i in range(7))
 
 

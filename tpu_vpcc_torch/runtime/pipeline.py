@@ -1151,10 +1151,12 @@ def _st(stats, name: str):
     return stage_timer(stats, name) if stats is not None else nullcontext()
 
 
-def _gof_frame_tables(gof: GofData, metas):
+def _gof_frame_tables(gof: GofData, metas, stats=None):
     """The FrameConfig and per-frame block group tables for ``metas``,
-    with pack30 set when every coordinate provably fits 10 bits."""
-    from ..atlas.groups import build_group_table, coords_fit_10bit
+    with pack30 set when every coordinate provably fits 10 bits; the
+    frames that took the occupancy-gated ownership pass are counted in
+    ``stats`` as ``tables_gated_frames``."""
+    from ..atlas.groups import build_group_tables, coords_fit_10bit
     from ..ops.reconstruct import make_config
 
     cfg = make_config(
@@ -1180,15 +1182,14 @@ def _gof_frame_tables(gof: GofData, metas):
         # occupancy for the occupancy-gated ownership fallback
         return lambda: gof.occ_planes[m.frame_index]
 
-    tables = [
-        build_group_table(
-            m,
-            occupancy_resolution=cfg.occupancy_resolution,
-            occ_provider=occ_provider_for(m),
-            occ_precision=gof.occupancy_precision,
-        )
-        for m in metas
-    ]
+    tables, gated = build_group_tables(
+        metas,
+        occupancy_resolution=cfg.occupancy_resolution,
+        occ_provider_for=occ_provider_for,
+        occ_precision=gof.occupancy_precision,
+    )
+    if stats is not None:
+        stats.count("tables_gated_frames", gated)
     if gof.packed10_ok and all(
         coords_fit_10bit(
             t.fields, t.n_groups, cfg.occupancy_resolution, cfg.geo_shift,
@@ -1200,12 +1201,12 @@ def _gof_frame_tables(gof: GofData, metas):
     return cfg, tables
 
 
-def _gof_tables_and_bucket(gof: GofData, space: int = 1):
+def _gof_tables_and_bucket(gof: GofData, space: int = 1, stats=None):
     """Tables plus one shared group bucket for a whole GOF; ``space``
     (the mesh's 'space' axis size) keeps the bucket shardable."""
     from ..atlas.groups import bucket_group_count
 
-    cfg, tables = _gof_frame_tables(gof, gof.metas)
+    cfg, tables = _gof_frame_tables(gof, gof.metas, stats)
     g_bucket = bucket_group_count(
         max((t.n_groups for t in tables), default=0), cfg.g_cap,
         multiple_of=space,
@@ -1590,7 +1591,8 @@ class GofPlan(NamedTuple):
 def _plan_gof(gof: GofData, stats=None, space: int = 1) -> GofPlan:
     """Split off the map-pair views and build the GOF's tables and group
     bucket (``space``, the mesh's 'space' axis size, divides it) under
-    the ``recon_tables`` span."""
+    the ``recon_tables`` span, with the ``tables_gated_frames``
+    counter."""
     layer_views = []
     if gof.map_count > 2:
         layer_views = [
@@ -1598,7 +1600,7 @@ def _plan_gof(gof: GofData, stats=None, space: int = 1) -> GofPlan:
         ]
         gof = _gof_map_pair_view(gof, 0)
     with _st(stats, "recon_tables"):
-        cfg, tables, g_bucket = _gof_tables_and_bucket(gof, space)
+        cfg, tables, g_bucket = _gof_tables_and_bucket(gof, space, stats)
     layer_cfg = replace(cfg, drop_map0=True) if layer_views else None
     return GofPlan(gof, layer_views, (cfg, tables), g_bucket, layer_cfg)
 

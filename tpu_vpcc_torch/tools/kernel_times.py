@@ -23,7 +23,16 @@ their bytes against the plain versions':
 
     python -m tpu_vpcc_torch.tools.kernel_times --smooth [--repeats 3]
 
-It needs a card; every line names the card and its power limit. With
+or the host's group tables of the first flagship GOF (32 1280² frames,
+frame seeds 0-31): the per-patch ``atlas.groups.build_group_table``
+against the vectorised ``build_group_tables``, after checking that their
+tables are equal, in ms a frame (no card needed; the host's CPU and,
+where there is one, the card are named):
+
+    python -m tpu_vpcc_torch.tools.kernel_times --tables [--repeats 5]
+
+The other modes need a card; every line names the card and its power
+limit. With
 ``--repeats N`` each probe (each density) is measured N times in turn;
 a line per probe compares its kernel with its library call
 (:func:`verdict`), a line per density gives K5's median and spread. The
@@ -36,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -794,6 +804,76 @@ def pack_main(repeats: int, smi: str) -> dict:
     return out
 
 
+#: frames of the GOF ``--tables`` times: a GOF of the 8iVFB CTC streams
+TABLES_FRAMES = 32
+
+
+def _same_table(a, b) -> bool:
+    return (a.n_groups == b.n_groups and a.tiled_ok == b.tiled_ok
+            and np.array_equal(a.fields, b.fields)
+            and a.fields.dtype == b.fields.dtype
+            and np.array_equal(a.block_to_patch, b.block_to_patch)
+            and a.block_to_patch.dtype == b.block_to_patch.dtype
+            and (a.trim is None) == (b.trim is None)
+            and (a.trim is None or np.array_equal(a.trim, b.trim)))
+
+
+def tables_main(repeats: int, n_frames: int = TABLES_FRAMES) -> dict:
+    """``--tables``: the group tables of the first flagship GOF
+    (``n_frames`` frames) built per patch (``build_group_table``, the
+    oracle, a frame at a time) and vectorised
+    (``build_group_tables``, as ``runtime.pipeline._gof_frame_tables``
+    calls it), checked equal (raises on a difference), then ``repeats``
+    timings of each in turn after one warm call; ms a frame, a line per
+    timing and one with the medians."""
+    import platform
+    import time
+
+    from ..atlas import groups as G
+    from ..models.flagship import FlagshipConfig, example_frames
+
+    fcfg = FlagshipConfig(batch=n_frames)
+    frames = example_frames(fcfg, seed=0)
+    metas = [f.meta for f in frames]
+    res, prec = fcfg.occupancy_resolution, fcfg.occupancy_precision
+
+    def occ_provider_for(m):
+        return lambda: frames[m.frame_index].occ_plane
+
+    def per_patch():
+        return [G.build_group_table(m, occupancy_resolution=res,
+                                    occ_provider=occ_provider_for(m),
+                                    occ_precision=prec) for m in metas]
+
+    def vectorised():
+        return G.build_group_tables(metas, res, occ_provider_for, prec)[0]
+
+    for k, (a, b) in enumerate(zip(per_patch(), vectorised())):
+        if not _same_table(a, b):
+            raise AssertionError(f"the vectorised table of frame {k} "
+                                 f"differs from build_group_table's")
+    host = f"{platform.processor() or platform.machine()}, " \
+           f"{os.cpu_count()} CPUs"
+    print(f"group tables of {n_frames} flagship frames "
+          f"({sum(len(m.patches) for m in metas)} patches), equal frame "
+          f"for frame; host {host}")
+    runs = {"per_patch": [], "vectorised": []}
+    for r in range(repeats):
+        for name, fn in (("per_patch", per_patch),
+                         ("vectorised", vectorised)):
+            t0 = time.perf_counter()
+            fn()
+            runs[name].append((time.perf_counter() - t0) * 1e3 / n_frames)
+            print(f"{name} tables, timing {r + 1} of {repeats}: "
+                  f"{runs[name][-1]:.4f} ms a frame")
+    med = {name: statistics.median(ms) for name, ms in runs.items()}
+    print(f"group tables ({host}), {repeats} timings each: per patch "
+          f"{med['per_patch']:.4f}, vectorised {med['vectorised']:.4f} ms "
+          f"a frame (medians), {med['per_patch'] / med['vectorised']:.2f}x")
+    return {"host": host, "frames": n_frames, "ms_per_frame": runs,
+            "median_ms_per_frame": med}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog=f"python -m {__name__}")
     ap.add_argument("--probes", default=",".join(probes.PROBES),
@@ -802,6 +882,9 @@ def main(argv=None) -> int:
                     help="time K5, the device pack, instead of the probes")
     ap.add_argument("--smooth", action="store_true",
                     help="time the smoothing kernels instead of the probes")
+    ap.add_argument("--tables", action="store_true",
+                    help="time the host's group tables instead of the "
+                         "probes (no card needed)")
     ap.add_argument("--repeats", type=int, default=1,
                     help="measurements of each probe, density or "
                          "smoothing kernel, in turn")
@@ -812,6 +895,13 @@ def main(argv=None) -> int:
         ap.error(f"unknown probes {unknown}")
     if args.repeats < 1:
         ap.error("--repeats must be at least 1")
+    if args.tables:
+        out = {"tables": tables_main(args.repeats)}
+        if torch.cuda.is_available():
+            out["card"] = nvidia_smi_line()
+            print(f"card: {out['card']}")
+        print(json.dumps(out))
+        return 0
     device = resolve_device("cuda")
     smi = nvidia_smi_line()
     print(f"device: {torch.cuda.get_device_name(device)} ({smi})")

@@ -59,7 +59,8 @@ class GofStats:
     #: mesh-configured decode degraded to single-device, ``h2d_bytes``
     #: the bytes of the dispatches' staged arrays sent to the device,
     #: ``emit_early`` 1 where the decode loop emitted the GOF while it
-    #: still awaited the next one, else 0)
+    #: still awaited the next one, else 0, ``tables_gated_frames`` the
+    #: frames whose group table took the occupancy-gated ownership pass)
     counters: Dict[str, int] = field(default_factory=dict)
     #: the GOF's spans in the order they ended; None once dropped
     #: (:data:`SPAN_GOFS`)
