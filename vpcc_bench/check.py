@@ -38,16 +38,17 @@ def digest(positions, colours) -> Digest:
 
 class Checker:
     """Digests received frames on a thread of its own (zlib releases the
-    interpreter lock), keyed by the order they arrived in."""
+    interpreter lock), keyed as the run files them: by the order they
+    arrived in, or by stream and place in it."""
 
     def __init__(self):
         self._q: "queue.Queue" = queue.Queue()
-        self.digests: Dict[int, Digest] = {}
+        self.digests: Dict[object, Digest] = {}
         self._t = threading.Thread(target=self._loop, daemon=True)
         self._t.start()
 
-    def put(self, index: int, frame) -> None:
-        self._q.put((index, frame))
+    def put(self, key, frame) -> None:
+        self._q.put((key, frame))
 
     def _loop(self):
         while True:

@@ -17,6 +17,14 @@ objects over the pool in turn, the consumer calling ``recv_frame``:
   earlier, at ``(k + 1) * frames_per_gof / frames_per_s`` seconds from
   the start, for the GOFs due within ``--seconds``; a frame's latency
   runs from its GOF's due time to its receipt.
+- several streams (``"streams": S``, closed loop): the program's
+  multi-stream batcher decodes S streams in shared dispatches, fed per
+  stream (stream s's k-th GOF is pool GOF ``(s + k) mod pool_gofs``) by
+  ``host_workers`` prep threads. The window opens on the receipt that
+  completes the ``open_after_gofs``-th whole GOF over all streams and
+  closes at the first GOF completed ``--seconds`` or more later at which
+  every stream has completed as many whole GOFs; ``frames_per_s`` is the
+  frames of all streams received in it over its length.
 
 Once the window has closed, the plain reference (``ref/``) reconstructs
 the pool's frames and every frame received is held to its pool frame's
@@ -31,11 +39,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import queue
+import resource
 import subprocess
 import sys
 import threading
 import time
-from contextlib import nullcontext
+from contextlib import contextmanager
 from typing import List, Optional
 
 import numpy as np
@@ -70,6 +80,12 @@ def smi(query: str) -> Optional[str]:
     except (OSError, subprocess.TimeoutExpired):
         return None
     return out.stdout.strip() if out.returncode == 0 else None
+
+
+def host_cpu(u0, u1) -> str:
+    """The process's CPU time between two ``getrusage`` readings."""
+    return (f"host CPU during the run: {u1.ru_utime - u0.ru_utime:.3f} s "
+            f"user, {u1.ru_stime - u0.ru_stime:.3f} s system")
 
 
 class Sampler:
@@ -177,6 +193,20 @@ def tapped_stats(log: list):
     return Tapped()
 
 
+@contextmanager
+def traced(profiler):
+    """``profiler`` (None: nothing) over the block, which it marks as the
+    traced window."""
+    if profiler is None:
+        yield
+        return
+    from torch.profiler import record_function
+
+    from .trace import WINDOW
+    with profiler, record_function(WINDOW):
+        yield
+
+
 class Timed:
     """The timed part of a run and what it saw."""
 
@@ -233,42 +263,240 @@ class Timed:
         # as missing
         give_up = threading.Timer(self.seconds + 2 * DRAIN_S, dec.close)
         open_after = self.traffic.get("open_after_gofs", 0)
-        with profiler if profiler is not None else nullcontext():
-            if profiler is not None:
-                from torch.profiler import record_function
-
-                from .trace import WINDOW
-                window = record_function(WINDOW)
-            else:
-                window = nullcontext()
-            with window:
-                self.t_start = time.perf_counter()
-                dec.start_gofs(self._feed(stop))
-                give_up.start()
-                n = 0
-                try:
-                    while (ps := self._recv(dec)) is not None:
-                        t = time.perf_counter()
-                        self.recv_t.append(t)
-                        self.checker.put(n, ps)
-                        n += 1
-                        if self.live or n % self.F or self.t_close:
-                            continue
-                        if self.t_open is None:
-                            if n // self.F >= open_after:
-                                self.t_open, self.n_open = t, n
-                        elif t - self.t_open >= self.seconds:
-                            self.t_close, self.n_close = t, n
-                            stop.set()
-                            give_up.cancel()
-                            give_up = threading.Timer(DRAIN_S, dec.close)
-                            give_up.start()
-                finally:
-                    give_up.cancel()
-                    stop.set()
-                self.t_end = time.perf_counter()
+        with traced(profiler):
+            self.t_start = time.perf_counter()
+            dec.start_gofs(self._feed(stop))
+            give_up.start()
+            n = 0
+            try:
+                while (ps := self._recv(dec)) is not None:
+                    t = time.perf_counter()
+                    self.recv_t.append(t)
+                    self.checker.put(n, ps)
+                    n += 1
+                    if self.live or n % self.F or self.t_close:
+                        continue
+                    if self.t_open is None:
+                        if n // self.F >= open_after:
+                            self.t_open, self.n_open = t, n
+                    elif t - self.t_open >= self.seconds:
+                        self.t_close, self.n_close = t, n
+                        stop.set()
+                        give_up.cancel()
+                        give_up = threading.Timer(DRAIN_S, dec.close)
+                        give_up.start()
+            finally:
+                give_up.cancel()
+                stop.set()
+            self.t_end = time.perf_counter()
         self.stats = dec.stats
         self.checker.close()
+
+    def handed_gofs(self) -> List[int]:
+        """The pool GOF of each hand-over."""
+        P = self.traffic["pool_gofs"]
+        return [k % P for k in range(len(self.handed))]
+
+    def gof_ends(self) -> List[float]:
+        """When each whole GOF had been received."""
+        return self.recv_t[self.F - 1::self.F]
+
+    def judge(self, want) -> tuple:
+        """``(wrong, missing, extra)``: received frame i held to
+        ``want``'s digest of its pool frame."""
+        F, P = self.F, self.traffic["pool_gofs"]
+        n_handed = len(self.handed) * F
+        expected = [want[((i // F) % P) * F + i % F] for i in range(n_handed)]
+        wrong, missing = check.compare(self.checker.digests, expected)
+        return wrong, missing, max(0, len(self.recv_t) - n_handed)
+
+
+def decode_gof_streams(feeds, params, max_host_workers: int, stats):
+    """The program's multi-stream batcher over one GOF feed a stream,
+    yielding ``(stream, frame, PointSet3)``: its wave loop
+    (``parallel.batcher._decode_waves``), each stream's next GOF pulled
+    from its feed in the batcher's prep pool. ``stats`` is one
+    ``GofStats`` for the whole decode."""
+    from tpu_vpcc_torch.parallel import batcher
+
+    return batcher._decode_waves([iter(f) for f in feeds],
+                                 lambda it: next(it, None), params,
+                                 max_host_workers, stats=stats)
+
+
+class TimedStreams:
+    """The timed part of a multi-stream run and what it saw. The
+    batcher's generator runs on a thread of its own, which the run
+    abandons where the program hangs; received frames are keyed by
+    stream and by their place in it."""
+
+    live = False
+
+    def __init__(self, staged, config: dict, traffic: dict, seconds: float,
+                 device: str):
+        self.staged, self.config, self.traffic = staged, config, traffic
+        self.seconds = float(seconds)
+        self.device = device
+        self.F = config["frames_per_gof"]
+        self.S, self.P = traffic["streams"], traffic["pool_gofs"]
+        self.handed: List[tuple] = []  # (None, handed at), all streams
+        self.gofs_handed = [0] * self.S
+        self.received = [0] * self.S
+        #: (stream, place) of frames whose frame index was not their place
+        self.mislabelled: set = set()
+        self.recv_t: List[float] = []
+        self.gof_t: List[float] = []
+        self.t_start = 0.0
+        self.t_open = self.t_close = None
+        self.stats = None
+        self.spans: List[tuple] = []
+        self.checker = check.Checker()
+        self._stop = threading.Event()
+        #: GOFs a stream may be handed: set, once the window is long
+        #: enough, where the streams' counts differ, so that they meet
+        self._cap = float("inf")
+        self._lock = threading.Lock()
+
+    def _feed(self, s: int):
+        """Stream s's GOFs, fresh objects each, until the window closes;
+        only the batcher's prep for stream s pulls it, one at a time."""
+        while True:
+            with self._lock:
+                k = self.gofs_handed[s]
+                if self._stop.is_set() or k >= self._cap:
+                    return
+                self.gofs_handed[s] += 1
+            gof = adapter.gof_data(self.staged[(s + k) % self.P], self.config)
+            self.handed.append((None, time.perf_counter()))
+            yield gof
+
+    def _consume(self, out: queue.Queue, stats) -> None:
+        from tpu_vpcc_torch.runtime.pipeline import Params
+
+        try:
+            for s, f, ps in decode_gof_streams(
+                    [self._feed(s) for s in range(self.S)],
+                    Params(device=self.device), self.traffic["host_workers"],
+                    stats):
+                out.put((s, f, ps, time.perf_counter()))
+        except Exception as e:  # the program's failure is the run's result
+            log(f"the batcher failed: {e!r}")
+        finally:
+            out.put(None)
+
+    def _take(self, n: int, s, f, ps) -> bool:
+        """File received frame n; True where it completed a whole GOF of
+        its stream. A frame on no stream of the run is filed apart, and
+        counts as extra."""
+        if not (isinstance(s, (int, np.integer)) and 0 <= s < self.S):
+            self.checker.put(("stray", n), ps)
+            return False
+        place = self.received[s]
+        self.received[s] += 1
+        if f != place:
+            self.mislabelled.add((s, place))
+        self.checker.put((s, place), ps)
+        return self.received[s] % self.F == 0
+
+    def _at_gof_end(self, t: float, n: int) -> bool:
+        """A whole GOF was received at ``t``, with frame n: open or close
+        the window; True where it closes."""
+        self.gof_t.append(t)
+        if self.t_close:
+            return False
+        whole = [r // self.F for r in self.received]
+        if self.t_open is None:
+            if sum(whole) >= self.traffic["open_after_gofs"]:
+                self.t_open, self.n_open = t, n
+            return False
+        if t - self.t_open < self.seconds:
+            return False
+        if len(set(whole)) == 1:
+            self.t_close, self.n_close = t, n
+            self._stop.set()
+            return True
+        # a stream lags a whole GOF: feed none further than the furthest
+        # has been fed, so that the streams meet
+        with self._lock:
+            self._cap = max(self.gofs_handed)
+        return False
+
+    def run(self, profiler=None):
+        """Drive the batcher through the window and drain it; with
+        ``profiler``, the whole of it is traced."""
+        self.stats = tapped_stats(self.spans)
+        out: queue.Queue = queue.Queue()
+        consumer = threading.Thread(
+            target=self._consume, args=(out, self.stats.new_gof()),
+            name="vpcc_bench-batcher", daemon=True)
+        with traced(profiler):
+            self.t_start = time.perf_counter()
+            consumer.start()
+            # past this the run stops waiting: frames not yet
+            # received count as missing
+            give_up = self.t_start + self.seconds + 2 * DRAIN_S
+            n = 0
+            try:
+                while True:
+                    try:
+                        item = out.get(timeout=max(
+                            0.0, give_up - time.perf_counter()))
+                    except queue.Empty:
+                        log("the batcher gave no frame in time")
+                        break
+                    if item is None:
+                        consumer.join()
+                        break
+                    s, f, ps, t = item
+                    self.recv_t.append(t)
+                    n += 1
+                    if (self._take(n - 1, s, f, ps)
+                            and self._at_gof_end(t, n)):
+                        give_up = time.perf_counter() + DRAIN_S
+            finally:
+                self._stop.set()
+            self.t_end = time.perf_counter()
+        self.checker.close()
+
+    def handed_gofs(self) -> List[int]:
+        return [(s + k) % self.P for s in range(self.S)
+                for k in range(self.gofs_handed[s])]
+
+    def gof_ends(self) -> List[float]:
+        return self.gof_t
+
+    def judge(self, want) -> tuple:
+        """``(wrong, missing, extra)``: frame i of stream s held to
+        ``want``'s digest of pool frame ``((s + i // F) mod P) * F + i mod
+        F``; a frame whose index was not its place is wrong, one past its
+        stream's hand-overs or on no stream extra."""
+        F, P = self.F, self.P
+        got = self.checker.digests
+        wrong = missing = 0
+        for s in range(self.S):
+            for i in range(self.gofs_handed[s] * F):
+                d = got.get((s, i))
+                if d is None:
+                    missing += 1
+                elif (d != want[((s + i // F) % P) * F + i % F]
+                      or (s, i) in self.mislabelled):
+                    wrong += 1
+        extra = sum(1 for s, i in got
+                    if s == "stray" or i >= self.gofs_handed[s] * F)
+        return wrong, missing, extra
+
+
+def warm_up_streams(staged, config: dict, traffic: dict, device: str) -> int:
+    """One wave through the batcher, one GOF a stream, stream s taking
+    pool GOF s mod ``pool_gofs``: the kernel libraries load, and every
+    pool GOF and the wave's merged input are decoded once. Returns the
+    frames out."""
+    from tpu_vpcc_torch.runtime.pipeline import Params
+
+    feeds = [[adapter.gof_data(staged[s % len(staged)], config)]
+             for s in range(traffic["streams"])]
+    return sum(1 for _ in decode_gof_streams(
+        feeds, Params(device=device), traffic["host_workers"], None))
 
 
 def warm_up(staged, config: dict, traffic: dict, device: str) -> int:
@@ -326,22 +554,27 @@ def run_cell(bench: Bench, cell_name: str, seed: int, seconds: float,
     staged = [adapter.stage(pool[g * F:(g + 1) * F], config)
               for g in range(traffic["pool_gofs"])]
     lap("its staging")
-    warm_frames = warm_up(staged, config, traffic, device)
+    multi = "streams" in traffic
+    warm = warm_up_streams if multi else warm_up
+    warm_frames = warm(staged, config, traffic, device)
     lap(f"the warm decode ({warm_frames} frames of {len(pool)})")
-    timed = Timed(staged, config, traffic, seconds, device)
+    timed = (TimedStreams if multi else Timed)(staged, config, traffic,
+                                               seconds, device)
     prof = profiler_for(device) if trace else None
     with Sampler() as sampler:
         setup_s = time.perf_counter() - PROCESS_T0
+        use0 = resource.getrusage(resource.RUSAGE_SELF)
         timed.run(prof)
+        use1 = resource.getrusage(resource.RUSAGE_SELF)
     peak = (torch.cuda.max_memory_allocated()
             if torch.device(device).type == "cuda" else 0)
     log(f"window: {len(timed.handed)} GOFs handed over, "
         f"{len(timed.recv_t)} frames received, "
         f"{timed.t_end - timed.t_start:.3f} s from the first hand-over to "
         f"the last frame; nvidia-smi during it: {sampler.summary()}")
-    ends = timed.recv_t[timed.F - 1::timed.F]
+    log(host_cpu(use0, use1))
     log("GOFs completed at (s from the first hand-over): " + " ".join(
-        f"{t - timed.t_start:.3f}" for t in ends))
+        f"{t - timed.t_start:.3f}" for t in timed.gof_ends()))
     timed.staged = staged = None  # the program's inputs go
 
     # the reference, once the window has closed
@@ -350,11 +583,10 @@ def run_cell(bench: Bench, cell_name: str, seed: int, seconds: float,
     log(f"reference: {len(pool)} pool frames in "
         f"{time.perf_counter() - t_ref:.3f} s")
     n_handed = len(timed.handed) * F
-    expected = [want[((i // F) % traffic["pool_gofs"]) * F + i % F]
-                for i in range(n_handed)]
-    wrong, missing = check.compare(timed.checker.digests, expected)
-    extra = max(0, len(timed.recv_t) - n_handed)
+    wrong, missing, extra = timed.judge(want)
     checks = {"frames_wrong": wrong + extra, "frames_missing": missing}
+    log(f"host memory peak (ru_maxrss): "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024} bytes")
 
     if trace:
         metrics = per_layer(bench, cell_name, config, traffic, timed, pool,
@@ -424,8 +656,8 @@ def per_layer(bench: Bench, cell: str, config: dict, traffic: dict,
         for g in range(traffic["pool_gofs"])
     ]
     total_bytes: dict = {}
-    for k in range(len(timed.handed)):
-        for key, b in pool_bytes[k % traffic["pool_gofs"]].items():
+    for g in timed.handed_gofs():
+        for key, b in pool_bytes[g].items():
             total_bytes[key] = total_bytes.get(key, 0) + b
     spans: dict = {}
     for g in timed.stats.gofs:

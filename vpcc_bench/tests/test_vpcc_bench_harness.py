@@ -18,7 +18,9 @@ KEYS = {"correct", "attempted", "failed", "metrics", "device", "checks"}
 @pytest.mark.parametrize("cell,trace", [("narrow_gof32_max", False),
                                         ("smooth_gof32_max", True),
                                         ("narrow_live30", False),
-                                        ("narrow_live30", True)])
+                                        ("narrow_live30", True),
+                                        ("multistream8_max", False),
+                                        ("multistream8_max", True)])
 def test_result_line(tiny_bench, cell, trace):
     r = run.run_cell(tiny_bench, cell, 3_000_000_017, 0.6, trace,
                      device="cpu")
@@ -43,9 +45,50 @@ def test_result_line(tiny_bench, cell, trace):
     json.dumps(r)
 
 
+#: the metrics each cell of the single-stream path reported before the
+#: multi-stream loop came in beside it
+SINGLE_STREAM = {
+    "narrow_gof32_max": (
+        {"frames_per_s", "setup_s"},
+        {"device_idle_pct", "dispatch_ms_per_frame", "emit_ms_per_frame",
+         "enqueue_ms_per_frame", "fetch_ms_per_frame", "h2d_host_gbps",
+         "h2d_host_ms_per_frame", "h2d_ms_per_frame",
+         "host_wait_ms_per_frame", "k1_roofline", "k5_roofline",
+         "plain_device_ms_per_frame", "stage_ms_per_frame",
+         "sync_wait_ms_per_frame", "tables_idle_ms_per_frame",
+         "tables_ms_per_frame"}),
+    "narrow_live30": (
+        {"frame_latency_p95_ms", "setup_s"},
+        {"device_idle_pct.live", "early_emit_pct.live",
+         "gen_late_ms_max.live", "handoff_ms_per_frame.live",
+         "hold_ms_per_gof.live", "recon_ms_per_gof.live"}),
+    "smooth_gof32_max": (
+        {"frames_per_s", "setup_s"},
+        {"device_idle_pct", "enqueue_ms_per_frame", "k1f_roofline",
+         "k2w_roofline", "plain_device_ms_per_frame", "smooth_ms_per_frame"}),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(SINGLE_STREAM))
+def test_single_stream_cells_keep_their_metrics(tiny_bench, cell):
+    """The single-stream cells list the metrics they listed, and an
+    untraced run's line has the same keys and reports all of them."""
+    e2e, layers = SINGLE_STREAM[cell]
+    assert {m["name"] for m in tiny_bench.metrics(cell, "end_to_end")} == e2e
+    assert {m["name"] for m in tiny_bench.metrics(cell, "per_layer")} == layers
+    traffic = tiny_bench.traffic(tiny_bench.cell(cell)["traffic"])
+    assert "streams" not in traffic
+    r = run.run_cell(tiny_bench, cell, 3_000_000_023, 0.4, False,
+                     device="cpu")
+    assert list(r) == ["correct", "attempted", "failed", "metrics", "device",
+                       "checks"]
+    assert set(r["metrics"]) == e2e
+
+
 def test_a_run_loads_neither_jax_nor_the_jax_package(tmp_path):
-    """In a fresh interpreter, a whole run loads no module whose
-    top-level name is jax, jaxlib, flax or tpu_vpcc, compared whole."""
+    """In a fresh interpreter, whole runs of the single-stream and the
+    multi-stream path load no module whose top-level name is jax, jaxlib,
+    flax or tpu_vpcc, compared whole."""
     root = tiny_root(tmp_path)
     code = (
         "import sys, json\n"
@@ -53,7 +96,8 @@ def test_a_run_loads_neither_jax_nor_the_jax_package(tmp_path):
         "from vpcc_bench import run\n"
         f"b = Bench({str(root)!r}, HERE)\n"
         "r = run.run_cell(b, 'narrow_gof32_max', 5, 0.5, True, device='cpu')\n"
-        "print(json.dumps({'correct': r['correct'],"
+        "m = run.run_cell(b, 'multistream8_max', 5, 0.5, True, device='cpu')\n"
+        "print(json.dumps({'correct': r['correct'] and m['correct'],"
         " 'banned': run.banned_modules(),"
         " 'port': 'tpu_vpcc_torch' in sys.modules}))\n"
     )

@@ -232,6 +232,11 @@ def test_host_spans_map_onto_the_trace_clock():
                           "sync_wait_ms_per_frame", "h2d_host_gbps",
                           "host_wait_ms_per_frame"}),
     ("narrow_live30", {"hold_ms_per_gof.live", "handoff_ms_per_frame.live"}),
+    ("multistream8_max", {"tables_ms_per_frame", "stage_ms_per_frame",
+                          "dispatch_ms_per_frame", "fetch_ms_per_frame",
+                          "emit_ms_per_frame", "h2d_host_ms_per_frame",
+                          "enqueue_ms_per_frame", "sync_wait_ms_per_frame",
+                          "h2d_host_gbps", "host_wait_ms_per_frame"}),
 ])
 def test_a_traced_run_reports_the_program_spans(tiny_bench, cell, names):
     """The harness as it is, on the CPU: the program's spans reach the
